@@ -1,0 +1,213 @@
+"""Port render modules and the forward slice against the JAX package.
+
+BSDFs per kind and NEE: allclose (rtol 1e-4, atol 1e-5) on >= 99.9% of
+lanes.  Film splats per filter: allclose (rtol 1e-5, atol 1e-6).  The slice
+(PathIntegrator.sample per lane): L within rtol 1e-3, atol 1e-4 on >= 99%
+of lanes — Russian roulette and lobe choices compare a uniform against a
+float, and may flip where the two packages' floats differ in the last bits,
+so the test bounds the share of lanes that differ and prints it.  The
+render() image means agree within a relative 1e-3."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mitsuba3_experiments_tpu.core.records import Ray as JRay
+from mitsuba3_experiments_tpu.core.records import SurfaceInteraction as JSI
+from mitsuba3_experiments_tpu.core.rng import Sampler as JSampler
+from mitsuba3_experiments_tpu.integrators import PathIntegrator as JPath
+from mitsuba3_experiments_tpu.integrators import render as jax_render
+from mitsuba3_experiments_tpu.intersect import ray_intersect as jax_ray_intersect
+from mitsuba3_experiments_tpu.render import bsdf as jbsdf
+from mitsuba3_experiments_tpu.render import emitter as jemitter
+from mitsuba3_experiments_tpu.render import film as jfilm
+from mitsuba3_experiments_tpu.render import sensor as jsensor
+from mitsuba3_experiments_tpu.scene import load_dict as jax_load_dict
+from mitsuba3_experiments_tpu_torch.core.records import Ray, SurfaceInteraction
+from mitsuba3_experiments_tpu_torch.core.rng import Sampler
+from mitsuba3_experiments_tpu_torch.integrators import PathIntegrator, render
+from mitsuba3_experiments_tpu_torch.intersect import ray_intersect
+from mitsuba3_experiments_tpu_torch.render import bsdf, emitter, film, sensor
+from mitsuba3_experiments_tpu_torch.scene import (
+    BSDFKind,
+    cornell_box,
+    mesh as meshlib,
+    scene_from_numpy,
+    scene_to_numpy,
+    standin_dict,
+)
+
+torch.set_num_threads(2)
+
+N = 4096
+
+
+def _cornell_sphere(res=32, spp=2):
+    d = cornell_box(res=res, spp=spp)
+    sph = meshlib.sphere(center=(0.3, -0.5, 0.2), radius=0.3, n_theta=24, n_phi=48)
+    d["sphere"] = {"type": "mesh", "vertices": sph.vertices, "faces": sph.faces,
+                   "normals": sph.normals, "bsdf": {"type": "ref", "id": "white"}}
+    return d
+
+
+def _pair(d):
+    js = jax_load_dict(d)[0]
+    return js, scene_from_numpy(scene_to_numpy(js))
+
+
+@pytest.fixture(scope="module")
+def standin():
+    return _pair(standin_dict(res=(24, 16), spp=1, tri_budget=20_000))
+
+
+def _share_close(pairs, rtol, atol):
+    """Share of lanes on which every (port, jax) pair is allclose."""
+    ok = None
+    for t, j in pairs:
+        a, b = t.numpy(), np.asarray(j)
+        c = np.isclose(a, b, rtol=rtol, atol=atol) | (a == b)
+        c = c.reshape(c.shape[0], -1).all(axis=1)
+        ok = c if ok is None else ok & c
+    return float(ok.mean())
+
+
+def _unit(rng, n):
+    v = rng.normal(size=(n, 3)).astype(np.float32)
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    v[: int(0.8 * n), 2] = np.abs(v[: int(0.8 * n), 2])   # mostly front side
+    return v
+
+
+@pytest.fixture(scope="module")
+def bsdf_case(standin):
+    js, ts = standin
+    rng = np.random.default_rng(21)
+    kinds = np.asarray(js.materials.kind)
+    mat_id = np.resize(np.arange(len(kinds), dtype=np.int32), N)
+    rng.shuffle(mat_id)
+    wi, wo = _unit(rng, N), _unit(rng, N)
+    uv = rng.uniform(-1, 2, (N, 2)).astype(np.float32)
+    u1 = rng.random(N, dtype=np.float32)
+    u2 = rng.random((N, 2), dtype=np.float32)
+    z3 = np.tile(np.float32([0, 0, 1]), (N, 1))
+    base = dict(t=np.ones(N, np.float32), p=np.zeros((N, 3), np.float32), n=z3, sh_n=z3,
+                sh_s=np.tile(np.float32([1, 0, 0]), (N, 1)),
+                sh_t=np.tile(np.float32([0, 1, 0]), (N, 1)), uv=uv, wi=wi,
+                prim_idx=np.zeros(N, np.int32), mat_id=mat_id,
+                emitter_id=np.full(N, -1, np.int32))
+    jsi = JSI(**{k: jnp.asarray(v) for k, v in base.items()})
+    tsi = SurfaceInteraction(**{k: torch.as_tensor(v) for k, v in base.items()})
+    fn = jax.jit(lambda si, wo, u1, u2: jbsdf.eval_pdf_sample(
+        js.materials, js.textures, si, wo, u1, u2))
+    ref = fn(jsi, jnp.asarray(wo), jnp.asarray(u1), jnp.asarray(u2))
+    args = (torch.as_tensor(wo), torch.as_tensor(u1), torch.as_tensor(u2))
+    return ts, tsi, args, ref, kinds[mat_id]
+
+
+@pytest.mark.parametrize("kind", range(BSDFKind.COUNT))
+def test_bsdf_per_kind(bsdf_case, kind):
+    ts, tsi, (wo, u1, u2), ref, lane_kind = bsdf_case
+    lanes = lane_kind == kind
+    assert lanes.sum() > 100
+    f_j, pdf_j, bs_j, w_j = ref
+    mats, tex = ts.materials, ts.textures
+    f, pdf = bsdf.eval_pdf(mats, tex, tsi, wo)
+    bs, w = bsdf.sample(mats, tex, tsi, u1, u2)
+    f2, pdf2, bs2, w2 = bsdf.eval_pdf_sample(mats, tex, tsi, wo, u1, u2)
+    for a, b in ((f, f2), (pdf, pdf2), (bs.wo, bs2.wo), (w, w2)):
+        assert torch.equal(a, b)
+    pairs = [(f, f_j), (pdf, pdf_j), (bs.wo, bs_j.wo), (bs.pdf, bs_j.pdf), (bs.eta, bs_j.eta),
+             (w, w_j)]
+    share = _share_close([(t[lanes], np.asarray(j)[lanes]) for t, j in pairs], 1e-4, 1e-5)
+    assert share >= 0.999, share
+    st = bs.sampled_type.numpy()[lanes] == np.asarray(bs_j.sampled_type)[lanes]
+    assert st.mean() >= 0.999, st.mean()
+
+
+def test_sample_emitter_direction(standin):
+    js, ts = standin
+    rng = np.random.default_rng(8)
+    o = rng.uniform([-3, 0.2, -3], [4, 2.8, 4], (N, 3)).astype(np.float32)
+    d = _unit(rng, N)
+    u2 = rng.random((N, 2), dtype=np.float32)
+    jsi = jax_ray_intersect(js, JRay.make(jnp.asarray(o), jnp.asarray(d)))
+    tsi = ray_intersect(ts, Ray.make(torch.as_tensor(o), torch.as_tensor(d)))
+    active = np.asarray(jsi.valid) & (tsi.prim_idx.numpy() == np.asarray(jsi.prim_idx))
+    assert active.mean() > 0.9
+    jds, jw = jemitter.sample_emitter_direction(js, jsi, jnp.asarray(u2), True, jnp.asarray(active))
+    tds, tw = emitter.sample_emitter_direction(ts, tsi, torch.as_tensor(u2), True,
+                                               torch.as_tensor(active))
+    share = _share_close(
+        [(tds.pdf, jds.pdf), (tds.d, jds.d), (tds.p, jds.p), (tds.dist, jds.dist), (tw, jw),
+         (tds.emitter_id, jds.emitter_id)], 1e-4, 1e-5)
+    assert share >= 0.999, share
+    assert float((tds.pdf > 0).float().mean()) > 0.2   # some lanes see a light
+
+
+@pytest.mark.parametrize("rfilter", ["box", "tent", "gaussian"])
+def test_film_put(rfilter):
+    rng = np.random.default_rng(2)
+    w, h = 16, 12
+    pos = (rng.random((5000, 2)) * [w, h]).astype(np.float32)
+    val = rng.random((5000, 3), dtype=np.float32)
+    active = rng.random(5000) < 0.9
+    ref = jfilm.put(jfilm.new_film(w, h), jnp.asarray(pos), jnp.asarray(val),
+                    jnp.asarray(active), rfilter=rfilter)
+    got = film.put(film.new_film(w, h), torch.as_tensor(pos), torch.as_tensor(val),
+                   torch.as_tensor(active), rfilter=rfilter)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(film.develop(got).numpy(), np.asarray(jfilm.develop(ref)),
+                               rtol=1e-5, atol=1e-6)
+
+
+def _camera_lanes(scene, sampler_cls, sample_ray, stack, arange, spp):
+    """render_pass up to the integrator call, for either package."""
+    w, h = scene.camera.resolution
+    n = w * h * spp
+    lane = arange(n)
+    pix = lane // spp
+    sampler = sampler_cls.create(5, lane=lane)
+    sampler, jitter = sampler.next_2d()
+    pos = stack([(pix % w), (pix // w)]) + jitter
+    return sampler, sample_ray(scene.camera, pos)
+
+
+SLICES = {
+    "cornell_sphere": (lambda: _pair(_cornell_sphere()), 2, 4),
+    "standin": (None, 1, 8),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SLICES))
+def test_path_slice_per_lane(name, standin, capsys):
+    make, spp, depth = SLICES[name]
+    js, ts = standin if make is None else make()
+    j_sampler, j_ray = _camera_lanes(
+        js, JSampler, jsensor.sample_ray,
+        lambda c: jnp.stack(c, -1).astype(jnp.float32), lambda n: jnp.arange(n, dtype=jnp.uint32), spp)
+    L_j, valid_j, _ = jax.jit(
+        lambda s, r: JPath(max_depth=depth).sample(js, s, r))(j_sampler, j_ray)
+    t_sampler, t_ray = _camera_lanes(
+        ts, Sampler, sensor.sample_ray,
+        lambda c: torch.stack(c, -1).to(torch.float32), lambda n: torch.arange(n), spp)
+    L_t, valid_t, _ = PathIntegrator(max_depth=depth).sample(ts, t_sampler, t_ray)
+    a, b = L_t.numpy(), np.asarray(L_j)
+    close = np.isclose(a, b, rtol=1e-3, atol=1e-4).all(axis=1)
+    with capsys.disabled():
+        print(f"\n[{name}] lanes whose L differs from JAX beyond rtol 1e-3/atol 1e-4: "
+              f"{1.0 - close.mean():.6f} of {len(close)}")
+    assert close.mean() >= 0.99, close.mean()
+    assert np.array_equal(valid_t.numpy(), np.asarray(valid_j))
+    assert np.isfinite(a).all() and a.mean() > 0
+
+
+def test_render_image_mean_matches():
+    js, ts = _pair(_cornell_sphere())
+    ref = np.asarray(jax_render(js, JPath(max_depth=4), spp=2, rfilter="tent"))
+    img = render(ts, PathIntegrator(max_depth=4), spp=2, rfilter="tent")
+    assert tuple(img.shape) == ref.shape == (32, 32, 3)
+    assert img.dtype == torch.float32
+    got = img.numpy()
+    rel = abs(float(got.mean()) - float(ref.mean())) / float(ref.mean())
+    assert rel < 1e-3, rel
