@@ -1,8 +1,8 @@
 """Interaction records: frozen dataclasses of tensors.
 
 Counterpart of ``mitsuba3_experiments_tpu.core.records`` (+ the ``twhere``
-of ``core/struct.py``).  Every field has the leading wavefront shape (N,);
-vectors are (N, 3).
+and ``trepeat`` of ``core/struct.py``).  Every field has the leading
+wavefront shape (N,); vectors are (N, 3).
 """
 from __future__ import annotations
 
@@ -49,6 +49,16 @@ def twhere(mask, a, b):
     return type(a)(**out)
 
 
+def trepeat(record, count: int):
+    """dr.repeat on a record: [a b c] -> [a a b b c c] along the wavefront
+    axis (``core/struct.py::trepeat``; torch.repeat_interleave, not
+    Tensor.repeat, which would tile [a b c a b c])."""
+    return type(record)(**{
+        f.name: torch.repeat_interleave(getattr(record, f.name), count, dim=0)
+        for f in dataclasses.fields(record)
+    })
+
+
 @dataclasses.dataclass(frozen=True)
 class Ray:
     """o + t*d for t in (0, maxt)."""
@@ -93,6 +103,10 @@ class SurfaceInteraction:
 
     def to_world(self, v_local):
         return m.to_world(self.sh_s, self.sh_t, self.sh_n, v_local)
+
+    @property
+    def wi_world(self):
+        return self.to_world(self.wi)
 
     def spawn_ray(self, d_world):
         """Offset the origin along the geometric normal (si.spawn_ray)."""

@@ -1,2 +1,8 @@
-from .common import mis_weight, render, render_pass  # noqa: F401
+from .common import (  # noqa: F401
+    make_integrator,
+    mis_weight,
+    register_integrator,
+    render,
+    render_pass,
+)
 from .path import PathIntegrator  # noqa: F401

@@ -7,6 +7,8 @@ fixed-size lane chunks) on the host and splats every pass into one film.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..core import math as m
@@ -14,6 +16,25 @@ from ..core.rng import MASK32, Sampler
 from ..render import film as filmlib
 from ..render import sensor as sensorlib
 from ..scene.types import Scene
+
+
+_REGISTRY: dict[str, type] = {}
+
+
+def register_integrator(name: str, cls):
+    """mi.register_integrator analog: make_integrator({'type': name})
+    builds cls."""
+    _REGISTRY[name] = cls
+    return cls
+
+
+def make_integrator(props: dict):
+    """mi.load_dict({'type': name, ...}) analog for integrators; keys that
+    are not fields of the integrator are ignored."""
+    props = dict(props)
+    cls = _REGISTRY[props.pop("type")]
+    fields = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in props.items() if k in fields})
 
 
 def mis_weight(pdf_a, pdf_b):

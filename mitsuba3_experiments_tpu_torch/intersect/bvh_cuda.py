@@ -8,39 +8,26 @@ the latency of the dependent row fetches (the table is ~150 MB at 2M
 triangles, beyond the H100's 50 MB L2).  This is the simple, correct form;
 making it fast is later work.
 
-The kernel is compiled from the repository's .cu with nvcc into a shared
-library with a plain C interface, loaded with ctypes, at the first CUDA call
-(never at import): into build/torch_kernels/ at the repository root, rebuilt
-whenever the source or the flags change.  Flags: sm_90a, -O3 and
---fmad=false — no FMA contraction, so the kernel's float operations round
-exactly like the plain torch version's.
+The kernel is built by cuda_build.CudaLibrary at the first CUDA call (never
+at import).  Its own flag is --fmad=false — no FMA contraction, so the
+kernel's float operations round exactly like the plain torch version's.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 
 import torch
+
+from ..cuda_build import CudaLibrary, check_tensor, stream_of
 
 # kernel launches made (a plain int, read by tests and the smoke test)
 launches = 0
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.normpath(os.path.join(_HERE, "..", "csrc", "bvh_traverse.cu"))
-BUILD_DIR = os.path.normpath(os.path.join(_HERE, "..", "..", "build", "torch_kernels"))
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-)
 ROW_FLOATS = 88
 MAX_STACK = 96
 # face code of a ray whose traversal stack would have overflowed; the table
 # is then not one that collapse_to_wide built for this layout
 OVERFLOW = -2
-
-_lib = None
 
 
 def check_overflow(face, depth: int) -> None:
@@ -53,69 +40,18 @@ def check_overflow(face, depth: int) -> None:
         )
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME): nvcc is needed to build")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def library_path() -> str:
-    """Where the build of the current source and flags lives."""
-    with open(SOURCE, "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"bvh_traverse_{key}.so")
+def _bind(lib):
+    fn = lib.m3t_bvh8_traverse
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, ci, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp]
+    fn.restype = ci
+    lib.m3t_bvh8_max_stack.argtypes = []
+    lib.m3t_bvh8_max_stack.restype = ci
+    if lib.m3t_bvh8_max_stack() != MAX_STACK:
+        raise RuntimeError("kernel library and wrapper disagree on the stack size")
 
 
-def build() -> str:
-    """Compile the kernel unless this source's build exists; returns the
-    library path.  nvcc's output (ptxas registers, spills) goes to
-    `<library>.log`."""
-    so = library_path()
-    if os.path.exists(so):
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-        capture_output=True, text=True, check=False,
-    )
-    with open(so + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)
-    return so
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        fn = lib.m3t_bvh8_traverse
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, ci, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp]
-        fn.restype = ci
-        lib.m3t_bvh8_max_stack.argtypes = []
-        lib.m3t_bvh8_max_stack.restype = ci
-        if lib.m3t_bvh8_max_stack() != MAX_STACK:
-            raise RuntimeError("kernel library and wrapper disagree on the stack size")
-        _lib = lib
-    return _lib
-
-
-def _check(name, x, dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-    if x.numel() and x.data_ptr() % 16:
-        raise ValueError(f"{name} is not 16-byte aligned")
+LIBRARY = CudaLibrary("bvh_traverse", ("--fmad=false",), _bind)
 
 
 def traverse_cuda(unified, n_nodes: int, o, d, maxt, active, any_hit: bool = False,
@@ -139,13 +75,13 @@ def traverse_cuda(unified, n_nodes: int, o, d, maxt, active, any_hit: bool = Fal
     if device.type != "cuda":
         raise ValueError(f"traverse_cuda needs CUDA tensors, got {device}")
     n = o.shape[0]
-    _check("unified", unified, torch.float32, (unified.shape[0], ROW_FLOATS), device)
+    check_tensor("unified", unified, torch.float32, (unified.shape[0], ROW_FLOATS), device, 16)
     if not 0 < n_nodes <= unified.shape[0]:
         raise ValueError(f"n_nodes {n_nodes} outside 1..{unified.shape[0]}")
-    _check("o", o, torch.float32, (n, 3), device)
-    _check("d", d, torch.float32, (n, 3), device)
-    _check("maxt", maxt, torch.float32, (n,), device)
-    _check("active", active, torch.bool, (n,), device)
+    check_tensor("o", o, torch.float32, (n, 3), device, 16)
+    check_tensor("d", d, torch.float32, (n, 3), device, 16)
+    check_tensor("maxt", maxt, torch.float32, (n,), device, 16)
+    check_tensor("active", active, torch.bool, (n,), device, 16)
     if n >= 2**31:
         raise ValueError("too many rays for one launch")
 
@@ -153,9 +89,9 @@ def traverse_cuda(unified, n_nodes: int, o, d, maxt, active, any_hit: bool = Fal
     face = torch.empty((n,), dtype=torch.int32, device=device)
     u = torch.empty((n,), dtype=torch.float32, device=device)
     v = torch.empty((n,), dtype=torch.float32, device=device)
-    lib = _load()
+    lib = LIBRARY.load()
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+        stream = stream_of(device)
         rc = lib.m3t_bvh8_traverse(
             unified.data_ptr(), int(n_nodes), o.data_ptr(), d.data_ptr(),
             maxt.data_ptr(), active.data_ptr(), int(n), int(bool(any_hit)),

@@ -36,6 +36,12 @@ def kind_of(name: str, cat: str) -> str:
         return "memcpy / memset"
     if "bvh8_traverse" in name:
         return "K1 bvh8_traverse_kernel"
+    if "fused_mlp_kernel" in name:
+        return "K2 fused_mlp_kernel"
+    if "tile_totals" in name or "scan_totals" in name or "tile_scan" in name:
+        return "K3 prefix sum kernels"
+    if "gemm" in low or "cutlass" in low:
+        return "matrix products (cuBLAS)"
     if "index" in low or "gather" in low or "scatter" in low:
         return "torch gather / index"
     if "reduce" in low:
@@ -60,6 +66,39 @@ def busy_ms(intervals) -> float:
     return total / 1e3
 
 
+def profiled(run):
+    """One call of `run` (which synchronizes and returns its wall seconds)
+    under torch.profiler; returns (wall seconds, the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_s = run()
+    return wall_s, prof
+
+
+def device_breakdown(prof, trace):
+    """Exports the trace and sums its device operations by kind; returns
+    (events, busy ms, {kind: [ops, ms]})."""
+    os.makedirs(os.path.dirname(os.path.abspath(trace)), exist_ok=True)
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+    by_kind = {}
+    for e in events:
+        k = by_kind.setdefault(kind_of(e.get("name", ""), e["cat"]), [0, 0.0])
+        k[0] += 1
+        k[1] += e["dur"] / 1e3
+    return events, busy_ms((e["ts"], e["ts"] + e["dur"]) for e in events), by_kind
+
+
+def card_name() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join("out", "profile_render.json"))
@@ -67,7 +106,6 @@ def main() -> int:
     args = ap.parse_args()
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("torch_profile_render: no CUDA device is available", file=sys.stderr)
@@ -76,10 +114,7 @@ def main() -> int:
     from mitsuba3_experiments_tpu_torch.integrators import PathIntegrator, render
     from mitsuba3_experiments_tpu_torch.scene import load_dict, standin_dict
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_name()
     print(card, flush=True)
 
     t0 = time.perf_counter()
@@ -99,21 +134,8 @@ def main() -> int:
     warm_s = [run() for _ in range(args.runs)]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall_s = run()
-    trace = os.path.splitext(args.out)[0] + ".trace.json"
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    prof.export_chrome_trace(trace)
-    with open(trace) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
-
-    by_kind = {}
-    for e in events:
-        k = by_kind.setdefault(kind_of(e.get("name", ""), e["cat"]), [0, 0.0])
-        k[0] += 1
-        k[1] += e["dur"] / 1e3
-    busy = busy_ms((e["ts"], e["ts"] + e["dur"]) for e in events)
+    wall_s, prof = profiled(run)
+    events, busy, by_kind = device_breakdown(prof, os.path.splitext(args.out)[0] + ".trace.json")
     w, h = scene.camera.resolution
     warm_sorted = sorted(warm_s)
     median_s = warm_sorted[len(warm_sorted) // 2]

@@ -49,8 +49,11 @@ def test_kernel_wrapper_imports_without_nvcc_or_triton():
     code = (
         "import shutil, sys\n"
         "from mitsuba3_experiments_tpu_torch.intersect import bvh_cuda, bvh_torch\n"
+        "from mitsuba3_experiments_tpu_torch.models import fused_mlp_cuda, nerad\n"
+        "from mitsuba3_experiments_tpu_torch.ops import prefix_sum_cuda\n"
         "assert shutil.which('nvcc') is None\n"
-        "assert bvh_cuda._lib is None and bvh_cuda.launches == 0\n"
+        "for w in (bvh_cuda, fused_mlp_cuda, prefix_sum_cuda):\n"
+        "    assert w.LIBRARY.handle is None and w.launches == 0, w\n"
         "assert 'triton' not in sys.modules\n"
         "assert 'torch.utils.cpp_extension' not in sys.modules\n"
         "print('ok')\n"
