@@ -6,10 +6,11 @@
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
  1. needs a CUDA card; prints `nvidia-smi`'s name and power limit;
- 2. builds the three kernels, one nvcc each, all started together: K1 the
+ 2. builds the four kernels, one nvcc each, all started together: K1 the
     BVH8 traversal (csrc/bvh_traverse.cu), K2 the fused MLP
-    (csrc/fused_mlp.cu), K3 the blocked scan (csrc/prefix_sum.cu); prints
-    their ptxas lines;
+    (csrc/fused_mlp.cu), K3 the blocked scan (csrc/prefix_sum.cu), K4 the
+    dependent gather chain (csrc/gather_chain.cu); prints their ptxas
+    lines;
  3. holds the kernel against its plain torch version on the same 65,536
     seeded rays, closest hit and any hit, into a 100k-triangle blob and the
     ~2M-triangle bedroom-class stand-in: closest-hit faces must be equal and
@@ -50,16 +51,57 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 10. one nerad step on the card against the same step on the CPU (Cornell
     box + a 4k-triangle sphere, a small fused field, batch 1,024, m_rhs 8),
     from the same parameters: losses within rtol 1e-3, MLP gradients within
-    rtol 2e-2 / atol 1e-5.
+    rtol 2e-2 / atol 1e-5;
+11. K4's path, the probe entry point ops.gather_probe.dep_chain, on the
+    seeded 431,104 x 88 table (151.8 MB, three times the L2) at 65,536 and
+    1,843,200 lanes x 64 steps: K4 launched and the plain chain not; the
+    final index equal on every lane and the accumulator equal bit for bit
+    to the plain chain's; ns per row of the kernel, the plain chain and
+    independent index_select (CUDA events); K4's bytes bound and its share
+    of it; one step's round trip at 132 lanes of one thread per block;
+12. the production forward and fwd+bwd at depth 8 on phase 3's stand-in
+    (1280x720, spp 4, rr_depth 4): render_persistent with the tent filter,
+    whose image must equal render()'s per pixel (rtol 1e-4 / atol 1e-5: the
+    film's atomic splat adds in another order) — render() run as one pass
+    (spp_per_pass=4), keyed like the persistent renderer (phase 4 splits
+    the 4 spp into two passes, whose rays carry other keys); then
+    record_full_pipelined(return_film=True, rfilter="box") and
+    replay_grads(mode="auto" -> full, chunk 131,072) of the MSE against
+    the forward image, with respect to materials.base_color and
+    emitters.radiance, as the JAX package's bench.py does: both gradients
+    finite and nonzero, K1 launched and the plain traversal not; fwd+bwd
+    seconds, rays/s and peak device memory; then the recorder's first batch
+    (2^21 camera rays) recorded again must give the same record, and every
+    K1 launch it makes (closest hit over the 2,097,152 rays and over each
+    bounce's compacted survivors, any hit over each bounce's compacted NEE
+    lanes) is held against the plain traversal on the same tensors, as in
+    phase 3; the first chunk's replayed radiance must equal the recorder's
+    own per-ray radiance (rtol 1e-4);
+13. the depth-65 companion (the reference bedroom's depth): 1280x720,
+    spp 1, max_depth 65, replay_grads(mode="auto" -> sorted) fed the
+    recorder's film: gradients finite and nonzero, seconds and rays/s;
+14. record and replay on the card against the CPU on the 32x24
+    sphere / floor / light scene (spp 2, depth 4): prims and occlusion
+    equal, gradients within rtol 1e-3 / atol 1e-4 max|g|.
 
 Each kernel's counts are set to 0 just before the path that runs it and
-read just after: K1's from the render of phase 4, K2's from the training
-of phase 8, K3's from the ops entry point of phase 9 (no path of the
-renderer or trainer scans: the CDFs are built on the host, as in the JAX
-package).  The kernels' JSON line gives each kernel's and its
-plain version's times at the main path's shapes: K1 on the render's camera
-batch (phase 5; phase 3 prints them at 65,536 rays), K2 on 524,288 field
-rows (phase 7), K3 on the stand-in's 1,964,564 face areas (phase 9).
+read just after: K1's around the render of phase 4 and again around the
+production fwd+bwd of phase 12 (whose count the JSON line gives), K2's
+from the training of phase 8, K3's from the ops entry point of phase 9 (no
+path of the renderer or trainer scans: the CDFs are built on the host, as
+in the JAX package), K4's from its probe entry point in phase 11.  The
+kernels' JSON line gives each kernel's and its plain version's times at
+the main path's shapes: K1 on the render's camera batch (phase 5; phase 3
+prints them at 65,536 rays), K2 on 524,288 field rows (phase 7), K3 on the
+stand-in's 1,964,564 face areas (phase 9), K4 at 65,536 lanes x 64 steps
+(phase 11).  Beside them, `bound_ms`, the least time the card could take
+for the same work: the larger of the bytes the work must move (each input
+read once, each output written once; for K1 and K4 the distinct table rows
+this run's data reaches) over 3.35 TB/s and its operations over the peak
+rate of their type (float32 67 TFLOP/s, bf16 989 TFLOP/s), and
+`library_ms`, one PyTorch call computing the same function where there is
+one (torch.cumsum for K3; none traverses a BVH, runs the whole MLP or
+walks a dependent chain).
 
 The last two lines of standard output are the kernels' JSON line and the
 result line {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -84,9 +126,26 @@ K2_REPLACES = "mitsuba3_experiments_tpu/models/pallas_mlp.py:28"
 K2_SOURCE = "mitsuba3_experiments_tpu_torch/csrc/fused_mlp.cu"
 K3_REPLACES = "mitsuba3_experiments_tpu/ops/prefix_sum.py:26"
 K3_SOURCE = "mitsuba3_experiments_tpu_torch/csrc/prefix_sum.cu"
+K4_REPLACES = "scripts/pallas_gather_probe.py:79"
+K4_SOURCE = "mitsuba3_experiments_tpu_torch/csrc/gather_chain.cu"
 FIELD_ROWS = 524_288       # NeradTrainer() RHS lanes: 16,384 x 32
 TRAIN_STEPS = 50
 SCAN_SIZES = (1_843_200, 1 << 26)
+CHAIN_LANES = (65_536, 1_843_200)
+CHAIN_ITERS = 64
+REPLAY_CHUNK = 131_072
+DEEP = 65                  # the reference bedroom's max_depth
+# the card's published peaks (H100 SXM data sheet, 700 W)
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+BF16_OPS_S = 989e12
+ROW_BYTES = 88 * 4
+# K1's float operations per fetched row, read off csrc/bvh_traverse.cu (a
+# fused multiply-add counts 2, a compare or min/max 1): an internal row is
+# 8 slab tests of 12 sub/mul, 10 min/max and 5 compares; a leaf row 8
+# triangle tests of about 60
+K1_OPS_INTERNAL_ROW = 8 * 27
+K1_OPS_LEAF_ROW = 8 * 60
 
 
 def check(cond, msg):
@@ -187,11 +246,9 @@ def compare_kernel(name, scene, rays, timing):
     return err, k_ms, p_ms
 
 
-def render_queries(scene, integrator):
-    """Runs the first pass of the smoke render (seed 0, pass 0, the same
-    1280x720x2 wavefront) through `render` and returns every traversal it
-    made: [(args, kwargs, kernel outputs)], in launch order."""
-    from mitsuba3_experiments_tpu_torch.integrators import render
+def k1_launches(run):
+    """Calls `run()` and returns every K1 launch it made: [(args, kwargs,
+    kernel outputs)], in launch order."""
     from mitsuba3_experiments_tpu_torch.intersect import bvh_cuda
 
     launch = bvh_cuda.traverse_cuda
@@ -204,10 +261,20 @@ def render_queries(scene, integrator):
 
     bvh_cuda.traverse_cuda = recording
     try:
-        render(scene, integrator, spp=SPP // 2, spp_per_pass=SPP // 2, rfilter="tent")
+        run()
     finally:
         bvh_cuda.traverse_cuda = launch
     return made
+
+
+def render_queries(scene, integrator):
+    """Runs the first pass of the smoke render (seed 0, pass 0, the same
+    1280x720x2 wavefront) through `render` and returns every traversal it
+    made: [(args, kwargs, kernel outputs)], in launch order."""
+    from mitsuba3_experiments_tpu_torch.integrators import render
+
+    return k1_launches(
+        lambda: render(scene, integrator, spp=SPP // 2, spp_per_pass=SPP // 2, rfilter="tent"))
 
 
 def build_all():
@@ -216,9 +283,10 @@ def build_all():
 
     from mitsuba3_experiments_tpu_torch.intersect import bvh_cuda
     from mitsuba3_experiments_tpu_torch.models import fused_mlp_cuda
-    from mitsuba3_experiments_tpu_torch.ops import prefix_sum_cuda
+    from mitsuba3_experiments_tpu_torch.ops import gather_probe_cuda, prefix_sum_cuda
 
-    libs = [bvh_cuda.LIBRARY, fused_mlp_cuda.LIBRARY, prefix_sum_cuda.LIBRARY]
+    libs = [bvh_cuda.LIBRARY, fused_mlp_cuda.LIBRARY, prefix_sum_cuda.LIBRARY,
+            gather_probe_cuda.LIBRARY]
     t0 = time.perf_counter()
 
     def build(lib):
@@ -305,12 +373,13 @@ def counters():
     """(name, module, attribute) of every launch and plain-call count."""
     from mitsuba3_experiments_tpu_torch.intersect import bvh_cuda, bvh_torch
     from mitsuba3_experiments_tpu_torch.models import fused_mlp, fused_mlp_cuda, mlp
-    from mitsuba3_experiments_tpu_torch.ops import prefix_sum_cuda
+    from mitsuba3_experiments_tpu_torch.ops import gather_probe, gather_probe_cuda, prefix_sum_cuda
 
     return (("k1", bvh_cuda, "launches"), ("plain_traverse", bvh_torch, "calls"),
             ("k2", fused_mlp_cuda, "launches"), ("plain_mlp", mlp, "calls"),
             ("recomputes", fused_mlp, "recomputes"), ("k3", prefix_sum_cuda, "launches"),
-            ("plain_scan", prefix_sum_cuda, "plain_calls"))
+            ("plain_scan", prefix_sum_cuda, "plain_calls"),
+            ("k4", gather_probe_cuda, "launches"), ("plain_chain", gather_probe, "plain_calls"))
 
 
 def reset_counts():
@@ -427,8 +496,12 @@ def phase_k3(device, card, areas, sizes=SCAN_SIZES):
     for name, x in cases:
         k_ms = cuda_ms(lambda: prefix_sum_cuda.scan_cuda(x), 20)
         p_ms = cuda_ms(lambda: ops.prefix_sum(x), 20)
-        print(f"[K3] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms ({card})")
-    return counts["k3"], err, k_ms, p_ms
+        lib_ms = cuda_ms(lambda: torch.cumsum(x, 0), 20)
+        bound = 2 * x.numel() * x.element_size() / HBM_BYTES_S * 1e3
+        print(f"[K3] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.cumsum "
+              f"{lib_ms:.4f} ms, bytes bound {bound:.4f} ms, kernel at {bound / k_ms:.3f} of it "
+              f"({card})")
+    return counts["k3"], err, k_ms, p_ms, lib_ms, bound
 
 
 def small_nerad_scene(device):
@@ -491,6 +564,268 @@ def phase_card_vs_cpu(device):
     for i, (a, b) in enumerate(zip(grads_c, grads_h)):
         check(bool(np.allclose(a, b, rtol=2e-2, atol=1e-5)),
               f"nerad MLP gradient {i} differs between card and CPU")
+
+
+def phase_k4(dev, card):
+    """Phase 11: K4's path, the probe entry point, against the plain chain
+    at the probe's table size; returns the 65,536-lane numbers (launches,
+    max abs err, kernel ms, plain ms, bound ms)."""
+    import torch
+
+    from mitsuba3_experiments_tpu_torch.ops import gather_probe, gather_probe_cuda
+
+    table = torch.as_tensor(gather_probe.build_table(0), device=dev)
+    rows_n = table.shape[0]
+    rng = np.random.default_rng(1)
+    print(f"[K4] table {rows_n} x {table.shape[1]} float32 ({table.numel() * 4 / 1e6:.1f} MB)")
+    first = None
+    for n in CHAIN_LANES:
+        idx0 = torch.as_tensor(rng.integers(0, rows_n, n).astype(np.int32), device=dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        idx, acc = gather_probe.dep_chain(table, idx0, CHAIN_ITERS)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(counts["k4"] == 1 and counts["plain_chain"] == 0,
+              f"dep_chain did not launch K4 once: {counts}")
+        ref_idx, ref_acc = gather_probe.dep_chain_plain(table, idx0, CHAIN_ITERS)
+        bad_idx = int((idx != ref_idx).sum())
+        bad_acc = int((acc.view(torch.int32) != ref_acc.view(torch.int32)).sum())
+        err = float((acc - ref_acc).abs().max())
+        print(f"[K4] {n} lanes x {CHAIN_ITERS}: final idx differs on {bad_idx} lanes, acc not "
+              f"bit-equal on {bad_acc}, max abs err {err:.3e}")
+        check(bad_idx == 0 and bad_acc == 0, f"K4 differs from the plain chain at {n} lanes")
+
+        idxs = torch.as_tensor(rng.integers(0, rows_n, (CHAIN_ITERS, n)).astype(np.int32),
+                               device=dev)
+        fetched = n * CHAIN_ITERS
+        def kernel(idx0=idx0):
+            gather_probe_cuda.dep_chain_cuda(table, idx0, CHAIN_ITERS, check=False)
+
+        def plain(idx0=idx0):
+            gather_probe.dep_chain_plain(table, idx0, CHAIN_ITERS)
+
+        def ind(idxs=idxs):
+            gather_probe.ind_gather_plain(table, idxs)
+
+        for fn in (kernel, plain, ind):
+            fn()
+        k_ms, p_ms, i_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3), cuda_ms(ind, 3)
+        distinct, nbytes = gather_probe.chain_bytes(table, idx0, CHAIN_ITERS)
+        bound = nbytes / HBM_BYTES_S * 1e3
+        traffic = fetched * ROW_BYTES / HBM_BYTES_S * 1e3
+        print(f"[K4] {n} lanes: kernel {k_ms:.4f} ms = {k_ms * 1e6 / fetched:.4f} ns/row, plain "
+              f"chain {p_ms:.4f} ms = {p_ms * 1e6 / fetched:.4f} ns/row, independent index_select "
+              f"{i_ms:.4f} ms = {i_ms * 1e6 / fetched:.4f} ns/row ({card})")
+        print(f"[K4] {n} lanes: {distinct} distinct rows reached: bytes bound {bound:.4f} ms "
+              f"(kernel at {bound / k_ms:.4f} of it); every fetch from device memory would be "
+              f"{traffic:.4f} ms (kernel at {traffic / k_ms:.4f} of that)")
+        if first is None:
+            first = (counts["k4"], err, k_ms, p_ms, bound)
+        del idxs
+    # latency view: one thread per block on 132 blocks, so each step of a
+    # lane waits for one device-memory round trip and nothing else
+    idx0 = torch.as_tensor(rng.integers(0, rows_n, 132).astype(np.int32), device=dev)
+    def lat():
+        gather_probe_cuda.dep_chain_cuda(table, idx0, CHAIN_ITERS, block=1, check=False)
+
+    lat()
+    l_ms = cuda_ms(lat, 20)
+    print(f"[K4] 132 lanes, block 1: {l_ms:.4f} ms = {l_ms * 1e6 / CHAIN_ITERS:.1f} ns per "
+          f"dependent step ({card})")
+    return first
+
+
+def replay_scene(device):
+    """The 32x24 sphere / floor / area-light scene of the JAX package's
+    replay tests."""
+    from mitsuba3_experiments_tpu_torch.core import math as tm
+    from mitsuba3_experiments_tpu_torch.scene import load_dict
+    from mitsuba3_experiments_tpu_torch.scene import mesh as meshlib
+
+    sph = meshlib.sphere(radius=1.0, n_theta=20, n_phi=40)
+    quad = meshlib.rectangle(subdiv=4)
+    light = meshlib.rectangle(subdiv=1)
+    fv = (quad.vertices * 4.0) @ np.array([[1, 0, 0], [0, 0, -1], [0, 1, 0]], np.float32)
+    lv = light.vertices @ np.array([[1, 0, 0], [0, -1, 0], [0, 0, -1]], np.float32) + np.array(
+        [0, 4, 0], np.float32)
+    return load_dict({
+        "type": "scene",
+        "sensor": {"type": "perspective", "fov": 45.0,
+                   "to_world": tm.look_at([0, 2, 6], [0, 0.5, 0], [0, 1, 0]),
+                   "film": {"width": 32, "height": 24}},
+        "sphere": {"type": "mesh", "vertices": sph.vertices + np.array([0, 1, 0], np.float32),
+                   "faces": sph.faces, "bsdf": {"type": "roughconductor", "alpha": 0.2}},
+        "floor": {"type": "mesh", "vertices": fv, "faces": quad.faces,
+                  "bsdf": {"type": "diffuse", "reflectance": [0.5, 0.4, 0.3]}},
+        "light": {"type": "mesh", "vertices": lv, "faces": light.faces,
+                  "bsdf": {"type": "diffuse", "reflectance": [0.0, 0.0, 0.0]},
+                  "emitter": {"type": "area", "radiance": [8.0, 8.0, 8.0]}},
+    }, device=device)[0]
+
+
+DIFF_KEYS = ("materials.base_color", "emitters.radiance")
+
+
+def fwd_bwd(scene, target, spp, depth, card, label):
+    """record_full_pipelined(return_film=True) + replay_grads(mode="auto"),
+    timed as one synchronized step; returns (record, gradients, counts,
+    seconds)."""
+    import torch
+
+    from mitsuba3_experiments_tpu_torch.integrators import record_full_pipelined, replay_grads
+    from mitsuba3_experiments_tpu_torch.scene import params
+
+    w, h = scene.camera.resolution
+    n_rays = w * h * spp
+    pad = -(-n_rays // REPLAY_CHUNK) * REPLAY_CHUNK
+    diff = {k: params.traverse(scene)[k] for k in DIFF_KEYS}
+    mode = "sorted" if depth >= 16 else "full"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    rec, film = record_full_pipelined(scene, 0, n_rays, spp=spp, max_depth=depth, rr_depth=4,
+                                      pad_to=pad, return_film=True, rfilter="box")
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    g = replay_grads(scene, diff, params.update, target, 0, rec, n_rays, chunk=REPLAY_CHUNK,
+                     spp=spp, max_depth=depth, rr_depth=4, rfilter="box", mode="auto", film=film)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{label}] {w}x{h} spp {spp} depth {depth}: fwd+bwd {dt:.3f} s = {n_rays / dt:.1f} "
+          f"rays/s (record {rec_s:.3f} s, replay_grads mode auto -> {mode} {dt - rec_s:.3f} s, "
+          f"{pad // REPLAY_CHUNK} chunks of {REPLAY_CHUNK}); peak device memory {peak:.2f} GB; "
+          f"counts {counts} ({card})")
+    for k in DIFF_KEYS:
+        gk = g[k]
+        print(f"[{label}] d loss / d {k}: shape {tuple(gk.shape)}, max |g| "
+              f"{float(gk.abs().max()):.6e}, sum {float(gk.sum()):.6e}")
+        check(bool(torch.isfinite(gk).all()), f"{label}: gradient of {k} is not finite")
+        check(float(gk.abs().max()) > 0.0, f"{label}: gradient of {k} is zero")
+    check(counts["k1"] > 0, f"{label}: the recorder did not launch K1")
+    check(counts["plain_traverse"] == 0, f"{label}: the recorder ran the plain traversal")
+    return rec, g, counts, dt
+
+
+def phase_production(scene, integrator, card):
+    """Phase 12: the production forward, then fwd+bwd at depth 8; returns
+    (forward image, fwd+bwd counts, K1's max abs error against plain on the
+    recorder's first batch)."""
+    import torch
+
+    from mitsuba3_experiments_tpu_torch.integrators import (
+        PathRecord, render, render_persistent, replay_radiance)
+    from mitsuba3_experiments_tpu_torch.integrators import persistent
+    from mitsuba3_experiments_tpu_torch.intersect import bvh_torch
+
+    w, h = RES
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    img = render_persistent(scene, seed=0, spp=SPP, max_depth=MAX_DEPTH, rr_depth=4,
+                            rfilter="tent")
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"[persistent] {w}x{h} spp {SPP} depth {MAX_DEPTH} tent: {fwd_s:.3f} s, "
+          f"{w * h * SPP / fwd_s:.1f} camera rays/s, counts {counts} ({card})")
+    check(counts["k1"] > 0 and counts["plain_traverse"] == 0,
+          "render_persistent did not run on K1 alone")
+    ref = render(scene, integrator, spp=SPP, spp_per_pass=SPP, rfilter="tent")
+    close = torch.isclose(img, ref, rtol=1e-4, atol=1e-5).all(dim=-1)
+    err = float((img - ref).abs().max())
+    print(f"[persistent] against render() in one pass: pixels within rtol 1e-4/atol 1e-5 "
+          f"{float(close.float().mean()):.6f} ({int((~close).sum())} outside), max abs err "
+          f"{err:.3e}, means {float(img.mean()):.6f} / {float(ref.mean()):.6f}")
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0,
+          "the persistent image is not finite or is black")
+    check(bool(close.all()), "render_persistent differs from render() beyond rtol 1e-4/atol 1e-5")
+    del ref
+
+    rec, _, counts, _ = fwd_bwd(scene, img, SPP, MAX_DEPTH, card, "fwd+bwd d8")
+    # the recorder's first batch (2^21 camera rays) again through the same
+    # wavefront, every K1 launch kept: its record must equal the frame's, so
+    # these launches are the counted run's own, on the same tensors; each is
+    # held against the plain traversal (closest hit over the live lanes,
+    # any hit over the compacted NEE lanes)
+    n_rays = w * h * SPP
+    batch = persistent.N_LANES
+    part = PathRecord.empty(batch, MAX_DEPTH, scene.device)
+    rayL = []
+    made = k1_launches(lambda: rayL.append(persistent.trace_rays(
+        scene, 0, 0, batch, batch, spp=SPP, max_depth=MAX_DEPTH, rr_depth=4, rec=part)))
+    rayL = rayL[0]
+    first = rec.rows(slice(0, batch))
+    for f in ("prim", "u", "v", "occl"):
+        check(bool(torch.equal(getattr(part, f), getattr(first, f))),
+              f"the first batch recorded again differs in {f}")
+    del part
+    err_k1, plain_s = 0.0, 0.0
+    for i, (args, kw, out_k) in enumerate(made):
+        kind = "shadow" if kw["any_hit"] else "closest"
+        t0 = time.perf_counter()
+        out_p = bvh_torch.traverse_plain(*args, any_hit=kw["any_hit"], layout=kw["layout"])
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        err_k1 = max(err_k1, hold(f"record batch0 #{i} {kind} {args[2].shape[0]}", out_k, out_p,
+                                  kw["any_hit"], int(args[5].sum())))
+    kinds = {kw["any_hit"] for _, kw, _ in made}
+    check(kinds == {False, True}, "the recorder's first batch made no closest-hit or no "
+          "any-hit launch")
+    print(f"[fwd+bwd d8] the recorder's first batch: {len(made)} K1 launches held against plain "
+          f"({plain_s:.1f} s of plain), max abs err {err_k1:.3e}")
+    del made
+
+    # the first chunk's replay gives the recorder's own per-ray radiance
+    with torch.no_grad():
+        L, _, _ = replay_radiance(scene, rec.rows(slice(0, REPLAY_CHUNK)), 0, 0, spp=SPP,
+                                  max_depth=MAX_DEPTH, rr_depth=4, ray_end=n_rays)
+    L = torch.where(torch.isfinite(L), L, 0.0)
+    ref_L = rayL[:REPLAY_CHUNK]
+    close = float(torch.isclose(L, ref_L, rtol=1e-4, atol=1e-7).all(dim=-1).float().mean())
+    print(f"[fwd+bwd d8] first chunk: replayed radiance within rtol 1e-4 of the recorder's on "
+          f"{close:.6f} of {REPLAY_CHUNK} rays, max abs err {float((L - ref_L).abs().max()):.3e}")
+    check(close == 1.0, "the replayed radiance differs from the recorder's")
+    return img, counts, err_k1
+
+
+def phase_card_vs_cpu_replay(device):
+    """Phase 14: record + replay on the card and on the CPU."""
+    import torch
+
+    from mitsuba3_experiments_tpu_torch.integrators import (
+        PathIntegrator, record_full_pipelined, render, replay_grads)
+    from mitsuba3_experiments_tpu_torch.scene import params
+
+    spp, depth = 2, 4
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        scene = replay_scene(dev)
+        n = 32 * 24 * spp
+        pad = n + 128
+        target = render(scene, PathIntegrator(max_depth=depth), seed=9, spp=spp, rfilter="box")
+        rec, film = record_full_pipelined(scene, 3, n, spp=spp, max_depth=depth, rr_depth=4,
+                                          pad_to=pad, return_film=True)
+        diff = {k: params.traverse(scene)[k] for k in DIFF_KEYS}
+        g = replay_grads(scene, diff, params.update, target, 3, rec, n, chunk=pad // 2, spp=spp,
+                         max_depth=depth, rr_depth=4, mode="full")
+        out[dev.type] = (rec, {k: v.cpu().numpy() for k, v in g.items()})
+    (rc, gc), (rh, gh) = out["cuda"], out["cpu"]
+    d_prim = int((rc.prim.cpu() != rh.prim).sum())
+    d_occl = int((rc.occl.cpu() != rh.occl).sum())
+    print(f"[replay card vs cpu] record entries differing: prim {d_prim}, occl {d_occl} of "
+          f"{rh.prim.numel()}")
+    check(d_prim == 0 and d_occl == 0, "the card's record differs from the CPU's")
+    for k in DIFF_KEYS:
+        scale = float(np.abs(gh[k]).max())
+        worst = float((np.abs(gc[k] - gh[k]) - 1e-3 * np.abs(gh[k])).max())
+        print(f"[replay card vs cpu] {k}: max |g| {scale:.6e}, largest |diff| - 1e-3 |cpu| "
+              f"{worst:.3e} (atol {1e-4 * scale:.3e})")
+        check(scale > 0 and bool(np.allclose(gc[k], gh[k], rtol=1e-3, atol=1e-4 * scale)),
+              f"replayed gradient of {k} differs between card and CPU")
 
 
 def main() -> int:
@@ -574,11 +909,15 @@ def main() -> int:
     plain_s = []
     for i, (args, kw, out_k) in enumerate(made):
         kind = "camera" if i == 0 else ("shadow" if kw["any_hit"] else "bounce")
+        rows0, leaf0 = bvh_torch.rows, bvh_torch.leaf_rows
         t0 = time.perf_counter()
         out_p = bvh_torch.traverse_plain(*args, any_hit=kw["any_hit"], layout=kw["layout"])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         plain_s.append(dt)
+        if i == 0:   # what the camera batch's traversal fetches: K1's bound
+            cam_rows, cam_leaf = bvh_torch.rows - rows0, bvh_torch.leaf_rows - leaf0
+            cam_distinct = bvh_torch.last_distinct_rows
         err_c = max(err_c, hold(f"pass0 #{i} {kind}", out_k, out_p, kw["any_hit"],
                                 int(args[5].sum())))
         print(f"[pass0 #{i} {kind}] plain {dt:.2f} s")
@@ -591,6 +930,18 @@ def main() -> int:
     print(f"[pass0] {len(made)} traversals of {n_main} rays held against plain "
           f"({sum(plain_s):.1f} s of plain); camera batch: kernel {k_main_ms:.4f} ms, "
           f"plain {p_main_ms:.3f} ms ({card})")
+    # K1's least time on the camera batch: each distinct row it reaches read
+    # once plus the rays in and the hits out, or its float operations
+    k1_bytes = cam_distinct * ROW_BYTES + n_main * (12 + 12 + 4 + 1 + 16)
+    k1_ops = (cam_rows - cam_leaf) * K1_OPS_INTERNAL_ROW + cam_leaf * K1_OPS_LEAF_ROW
+    k1_bound = max(k1_bytes / HBM_BYTES_S, k1_ops / F32_OPS_S) * 1e3
+    k1_by = "bytes" if k1_bytes / HBM_BYTES_S >= k1_ops / F32_OPS_S else "operations"
+    print(f"[pass0] camera batch fetched {cam_rows} rows ({cam_leaf} leaf, {cam_distinct} "
+          f"distinct of {scene.bvh.unified.shape[0]}): bytes {k1_bytes / 1e6:.1f} MB = "
+          f"{k1_bytes / HBM_BYTES_S * 1e3:.4f} ms, float32 operations {k1_ops / 1e9:.2f} G = "
+          f"{k1_ops / F32_OPS_S * 1e3:.4f} ms: bound {k1_bound:.4f} ms by {k1_by}, kernel at "
+          f"{k1_bound / k_main_ms:.4f} of it; every fetch from device memory would be "
+          f"{cam_rows * ROW_BYTES / HBM_BYTES_S * 1e3:.4f} ms")
     del made
 
     # ---- phase 6: small reference render, card vs CPU ----------------------
@@ -619,21 +970,50 @@ def main() -> int:
     err_k2 = max(err_k2, err_trained)
 
     # ---- phase 9: K3's path, the ops entry point, against plain ------------
-    k3_launches, err_k3, k3_ms, k3_plain_ms = phase_k3(
+    k3_launches, err_k3, k3_ms, k3_plain_ms, k3_lib_ms, k3_bound = phase_k3(
         dev, card, NeradTrainer.make_area_dist(scene).pmf)
 
     # ---- phase 10: one nerad step, card against CPU ------------------------
     phase_card_vs_cpu(dev)
 
+    # ---- phase 11: K4's path, the probe entry point, against plain ---------
+    k4_launches, err_k4, k4_ms, k4_plain_ms, k4_bound = phase_k4(dev, card)
+
+    # ---- phase 12: production forward + fwd+bwd, depth 8 -------------------
+    target, prod, err_d = phase_production(scene, integrator, card)
+
+    # ---- phase 13: the depth-65 companion ----------------------------------
+    fwd_bwd(scene, target, 1, DEEP, card, "fwd+bwd d65")
+
+    # ---- phase 14: record + replay, card against CPU -----------------------
+    phase_card_vs_cpu_replay(dev)
+
+    # K2's least time on 524,288 rows: the features in, the weights and the
+    # outputs once, or its bf16 products at the tensor cores' rate
+    sizes = (32, 64, 64, 64, 3)
+    k2_bytes = FIELD_ROWS * (sizes[0] + sizes[-1]) * 4 + sum(
+        (a + 1) * b * 4 for a, b in zip(sizes[:-1], sizes[1:]))
+    k2_ops = 2 * FIELD_ROWS * sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
+    k2_bound = max(k2_bytes / HBM_BYTES_S, k2_ops / BF16_OPS_S) * 1e3
+    k2_by = "bytes" if k2_bytes / HBM_BYTES_S >= k2_ops / BF16_OPS_S else "operations"
+    print(f"[K2] bound on {FIELD_ROWS} rows: {k2_bytes / 1e6:.1f} MB = "
+          f"{k2_bytes / HBM_BYTES_S * 1e3:.4f} ms, {k2_ops / 1e9:.2f} G bf16 operations = "
+          f"{k2_ops / BF16_OPS_S * 1e3:.4f} ms: {k2_bound:.4f} ms by {k2_by}, kernel at "
+          f"{k2_bound / k2_ms:.4f} of it")
     print(f"[smoke] total {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": [
         {"name": "bvh8_traverse", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-         "launches": launches, "max_abs_err": max(err_a, err_b, err_c), "ms": k_main_ms,
-         "plain_ms": p_main_ms},
+         "launches": prod["k1"], "max_abs_err": max(err_a, err_b, err_c, err_d), "ms": k_main_ms,
+         "plain_ms": p_main_ms, "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
         {"name": "fused_mlp", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
-         "launches": train["k2"], "max_abs_err": err_k2, "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "launches": train["k2"], "max_abs_err": err_k2, "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
         {"name": "prefix_sum", "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
-         "launches": k3_launches, "max_abs_err": err_k3, "ms": k3_ms, "plain_ms": k3_plain_ms},
+         "launches": k3_launches, "max_abs_err": err_k3, "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "bound_ms": k3_bound, "bound_by": "bytes", "library_ms": k3_lib_ms},
+        {"name": "gather_chain", "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
+         "launches": k4_launches, "max_abs_err": err_k4, "ms": k4_ms, "plain_ms": k4_plain_ms,
+         "bound_ms": k4_bound, "bound_by": "bytes", "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

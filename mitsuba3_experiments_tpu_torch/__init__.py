@@ -23,3 +23,17 @@ rounding) and live on the device of the scene they belong to.
 """
 
 __version__ = "0.1.0"
+
+import torch
+
+
+def default_device() -> torch.device:
+    """The device every entry point uses when its caller names none: the
+    card.  A CPU run is asked for with ``device="cpu"``; nothing falls back
+    to the CPU when there is no card."""
+    return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device` as a torch.device, ``default_device()`` for None."""
+    return default_device() if device is None else torch.device(device)

@@ -11,11 +11,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import resolve_device
 from . import math as m
 
 
 def _f32(x, device):
-    return torch.as_tensor(np.array(x, np.float32), device=device)
+    return torch.as_tensor(np.array(x, np.float32), device=resolve_device(device))
 
 
 @dataclasses.dataclass(frozen=True)

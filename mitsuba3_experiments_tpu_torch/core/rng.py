@@ -17,6 +17,8 @@ import dataclasses
 
 import torch
 
+from .. import resolve_device
+
 MASK32 = 0xFFFFFFFF
 
 
@@ -66,7 +68,7 @@ class Sampler:
     @staticmethod
     def create(seed, n: int | None = None, lane=None, device=None):
         if lane is None:
-            lane = torch.arange(n, dtype=torch.int64, device=device)
+            lane = torch.arange(n, dtype=torch.int64, device=resolve_device(device))
         return Sampler(seed=int(seed) & MASK32, lane=lane.to(torch.int64) & MASK32, dim=0)
 
     def _draw_bits(self, offset: int):

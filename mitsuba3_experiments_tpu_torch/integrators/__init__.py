@@ -6,3 +6,16 @@ from .common import (  # noqa: F401
     render_pass,
 )
 from .path import PathIntegrator  # noqa: F401
+from .persistent import ray_pixel, ray_positions, render_persistent, splat_deferred  # noqa: F401
+from .pipelined import record_full_pipelined, render_pipelined  # noqa: F401
+from .replay import (  # noqa: F401
+    PathRecord,
+    path_lengths,
+    record_chunk,
+    record_full,
+    replay_grads,
+    replay_grads_full,
+    replay_grads_sorted,
+    replay_radiance,
+    replay_render_grad,
+)

@@ -26,8 +26,15 @@ from .triangle import cross_fma, dot_fma, intersect_tri
 
 DONE = -1  # shared with the "empty child" code
 
-# plain traversals run (a plain int, read by tests and the smoke test)
+# plain traversals run; the table rows they fetched for live rays, and how
+# many of those were leaf rows; the distinct rows the last traversal
+# fetched (plain ints, read by the smoke test, which turns them into K1's
+# least time on the card; kept on the device as one fetch count per row and
+# read once, when the traversal ends)
 calls = 0
+rows = 0
+leaf_rows = 0
+last_distinct_rows = 0
 
 
 def _tri_test9(o, d, g9, t_best):
@@ -55,7 +62,7 @@ def _tri_test9(o, d, g9, t_best):
 def traverse_plain(unified, n_nodes: int, o, d, maxt, active,
                    any_hit: bool = False, layout=None):
     """Returns (t, face, u, v) with face == -1 and t == inf for misses."""
-    global calls
+    global calls, rows, leaf_rows, last_distinct_rows
     calls += 1
     lay = layout if layout is not None else DEFAULT_LAYOUT
     WIDTH, LEAF_CAP, STACK_DEPTH = lay.width, lay.leaf_cap, lay.stack
@@ -76,6 +83,7 @@ def traverse_plain(unified, n_nodes: int, o, d, maxt, active,
     sp = torch.zeros((n,), dtype=i32, device=dev)
     ki = torch.arange(WIDTH, dtype=i32, device=dev)
     done_col = torch.full((n, 1), DONE, dtype=i32, device=dev)
+    fetches = torch.zeros((unified.shape[0],), dtype=torch.int64, device=dev)
 
     while bool((cur != DONE).any()):
         live = cur != DONE
@@ -84,6 +92,7 @@ def traverse_plain(unified, n_nodes: int, o, d, maxt, active,
 
         # ----------- one unified row fetch; internal view: slabs ----------
         row_idx = torch.where(is_int, cur, n_nodes + torch.where(is_leaf, -cur - 2, 0))
+        fetches.index_add_(0, row_idx.long(), live.to(torch.int64))
         row = unified[row_idx.long()]                       # (N, 88)
         codes = row[:, 0:WIDTH].contiguous().view(i32)
         bb = row[:, NODE_BASE: NODE_BASE + 6 * WIDTH].reshape(n, WIDTH, 6)
@@ -172,6 +181,10 @@ def traverse_plain(unified, n_nodes: int, o, d, maxt, active,
         stack = torch.cat([head, res[:, WIDTH:]], dim=1)
         cur, sp = nxt, sp_new
 
+    n_rows, n_leaf, last_distinct_rows = torch.stack(
+        [fetches.sum(), fetches[n_nodes:].sum(), (fetches > 0).sum()]).tolist()
+    rows += n_rows
+    leaf_rows += n_leaf
     bvh_cuda.check_overflow(face_best, STACK_DEPTH)
     t_out = torch.where(face_best >= 0, t_best, m.INF)
     return t_out, face_best, u_best, v_best
@@ -255,12 +268,18 @@ def _const3(v, like):
     return torch.tensor(v, dtype=m.Float, device=like.device)
 
 
-def _make_si(scene: Scene, ray: Ray, t, face, u, v):
+def _make_si(scene: Scene, ray: Ray, t, face, u, v, return_row: bool = False):
     """Assemble the SurfaceInteraction from a hit (global face id): one row
-    fetch from Geometry.face_packed."""
+    fetch from Geometry.face_packed.
+
+    A lane without a hit fetches row `lane % F` (its fields are discarded),
+    as in the JAX package, so that misses do not all read one row.
+    `return_row=True` also returns the fetched (N, 32) row, whose columns
+    27 (emitter pmf) and 28 (area) feed pdf_emitter_direction_packed."""
     g = scene.geometry
     valid = face >= 0
-    row = g.face_packed[torch.clamp(face, min=0).long()]     # (N, 32)
+    spread = torch.arange(face.shape[0], device=face.device) % g.face_packed.shape[0]
+    row = g.face_packed[torch.where(valid, face.long(), spread)]     # (N, 32)
     v0, e1, e2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
     p = v0 + e1 * u[:, None] + v[:, None] * e2
     ng = m.normalize(m.cross(e1, e2))
@@ -283,7 +302,7 @@ def _make_si(scene: Scene, ray: Ray, t, face, u, v):
 
     inval = (~valid)[:, None]
     z, x, y = _const3((0.0, 0.0, 1.0), t), _const3((1.0, 0.0, 0.0), t), _const3((0.0, 1.0, 0.0), t)
-    return SurfaceInteraction(
+    si = SurfaceInteraction(
         t=torch.where(valid, t, m.INF),
         p=torch.where(inval, 0.0, p),
         n=torch.where(inval, z, ng),
@@ -296,3 +315,4 @@ def _make_si(scene: Scene, ray: Ray, t, face, u, v):
         mat_id=torch.where(valid, mat_id, -1).to(torch.int32),
         emitter_id=torch.where(valid, emitter_id, -1).to(torch.int32),
     )
+    return (si, row) if return_row else si

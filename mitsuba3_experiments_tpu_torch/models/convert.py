@@ -6,12 +6,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import resolve_device
 from .nerad import Field
 
 
 def field_params_from_numpy(tree, device=None) -> Field:
+    dev = resolve_device(device)
+
     def t(x):
-        return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
+        return torch.as_tensor(np.array(x, dtype=np.float32), device=dev)
 
     return Field(t(tree["grid"]), [{"w": t(l["w"]), "b": t(l["b"])} for l in tree["mlp"]])
 

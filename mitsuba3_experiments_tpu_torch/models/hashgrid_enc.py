@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from .. import resolve_device
 from ..core.rng import MASK32
 
 _PRIMES = (1, 2654435761, 805459861)
@@ -47,7 +48,7 @@ def init_hashgrid(generator: torch.Generator, cfg: HashGridConfig, device=None):
     t = 1 << cfg.log2_table_size
     u = torch.rand((cfg.n_levels, t, cfg.n_features), generator=generator,
                    dtype=torch.float32, device=generator.device)
-    return (u * 2e-4 - 1e-4).to(device)
+    return (u * 2e-4 - 1e-4).to(resolve_device(device))
 
 
 def _hash(q, table_size: int):

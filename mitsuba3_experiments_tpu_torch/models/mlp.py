@@ -17,6 +17,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from .. import resolve_device
+
 ACTS = {
     "relu": torch.relu,
     "leaky_relu": lambda x: F.leaky_relu(x, 0.01),
@@ -35,6 +37,7 @@ def init_mlp(generator: torch.Generator, sizes: Sequence[int], scale: float | No
     """He-normal init; returns a list of {'w': (in, out), 'b': (out,)}
     float32 tensors, drawn from `generator` (on its own device) and moved
     to `device`."""
+    device = resolve_device(device)
     params = []
     for cin, cout in zip(sizes[:-1], sizes[1:]):
         s = scale if scale is not None else math.sqrt(2.0 / cin)

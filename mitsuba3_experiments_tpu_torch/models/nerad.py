@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import resolve_device
 from ..core import math as m
 from ..core import warp
 from ..core.distributions import DiscreteDistribution
@@ -70,6 +71,7 @@ class Field(nn.Module):
 
 
 def init_field(generator: torch.Generator, cfg: FieldConfig, device=None) -> Field:
+    device = resolve_device(device)
     in_dim = cfg.grid.out_dim + (cfg.sh_order + 1) ** 2
     sizes = [in_dim] + [cfg.width] * (cfg.depth - 1) + [3]
     grid = init_hashgrid(generator, cfg.grid, device=device)

@@ -29,7 +29,13 @@ _MIN_ALPHA = 1e-3
 
 
 def _gather_rows(mats: MaterialTable, mat_id):
-    """Per-lane material columns, resolving one MASK nesting level."""
+    """Per-lane material columns, resolving one MASK nesting level.
+
+    The float columns a gradient may flow into (base_color, params) are
+    read with index_select, whose backward is an index_add_: the backward
+    of advanced indexing, a sorted index_put_, serializes the many lanes
+    that share one of a table's few rows, and dominated a replay chunk's
+    device time on the card."""
     mid = torch.clamp(mat_id, min=0).long()
     kind = mats.kind[mid]
     nested = mats.nested_id[mid]
@@ -37,13 +43,13 @@ def _gather_rows(mats: MaterialTable, mat_id):
     eff = torch.where(is_mask, torch.clamp(nested, min=0).long(), mid)
     return dict(
         kind=mats.kind[eff],
-        base_color=mats.base_color[eff],
-        params=mats.params[eff],
+        base_color=mats.base_color.index_select(0, eff),
+        params=mats.params.index_select(0, eff),
         tex_id=mats.tex_id[eff],
         twosided=mats.twosided[mid] | mats.twosided[eff],
         flags=mats.flags[mid],
         is_mask=is_mask,
-        opacity=torch.where(is_mask[:, None], mats.base_color[mid], 1.0),
+        opacity=torch.where(is_mask[:, None], mats.base_color.index_select(0, mid), 1.0),
         opacity_tex=torch.where(is_mask, mats.tex_id[mid], -1),
     )
 

@@ -27,7 +27,8 @@ def eval_emitter(scene: Scene, si, active=None):
     if active is not None:
         has_em = has_em & active
     front = si.wi[..., 2] > 0.0
-    rad = scene.emitters.radiance[torch.clamp(si.emitter_id, min=0).long()]
+    # index_select: its backward is an index_add_ (see bsdf/dispatch.py)
+    rad = scene.emitters.radiance.index_select(0, torch.clamp(si.emitter_id, min=0).long())
     return torch.where((has_em & front)[:, None], rad, 0.0)
 
 
@@ -168,7 +169,7 @@ def sample_emitter_direction(scene: Scene, si_ref, u2, test_visibility=True, act
     valid = active & (cos_l > 0.0) & (dist2 > 0.0) & (pdf_sa > 0.0)
 
     em_id = row[:, 13].contiguous().view(torch.int32)
-    rad = em.radiance[em_id.long()]
+    rad = em.radiance.index_select(0, em_id.long())
 
     if has_env:
         d_env, pdf_env, rad_env = _sample_env_direction(
@@ -227,6 +228,25 @@ def pdf_emitter_direction(scene: Scene, si_ref, si_hit, active=None):
     row = em.em_face_packed[slot_s]
     area, pmf = row[:, 9], row[:, 10]
     pdf = m.safe_div(pmf * dist2, cos_l * area)
+    if _has_env_map(em):
+        pdf = pdf * (1.0 - em.env_select_p)   # NEE technique-selection prob
+    return torch.where(has & (cos_l > 0.0), pdf, 0.0)
+
+
+def pdf_emitter_direction_packed(scene: Scene, si_ref, si_hit, em_pmf, em_area, active=None):
+    """pdf_emitter_direction from the NEE-pdf columns of the hit's face row
+    (``_make_si(..., return_row=True)``: row[:, 27] = pmf, row[:, 28] =
+    area): the same floats as the emitter-table path without its two
+    gathers.  Used by the persistent renderer and the path replay."""
+    em = scene.emitters
+    has = (si_hit.prim_idx >= 0) & (si_hit.emitter_id >= 0) & (em_pmf > 0.0)
+    if active is not None:
+        has = has & active
+    d_un = si_hit.p - si_ref.p
+    dist2 = m.squared_norm(d_un)
+    d = d_un * m.rsqrt_safe(dist2)[..., None]
+    cos_l = m.dot(si_hit.n, -d)
+    pdf = m.safe_div(em_pmf * dist2, cos_l * em_area)
     if _has_env_map(em):
         pdf = pdf * (1.0 - em.env_select_p)   # NEE technique-selection prob
     return torch.where(has & (cos_l > 0.0), pdf, 0.0)

@@ -9,11 +9,12 @@ import math
 
 import torch
 
+from .. import resolve_device
 from ..core import math as m
 
 
 def new_film(width: int, height: int, device=None):
-    return torch.zeros((height, width, 4), dtype=m.Float, device=device)
+    return torch.zeros((height, width, 4), dtype=m.Float, device=resolve_device(device))
 
 
 def _accum(film, xi, yi, w, value, active):

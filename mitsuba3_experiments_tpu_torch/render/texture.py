@@ -32,7 +32,8 @@ def eval_texture(atlas: TextureAtlas, tex_id, uv):
         # floor-mod, like jnp.mod
         xi = torch.remainder(xi.to(torch.int32), size[:, 1])
         yi = torch.remainder(yi.to(torch.int32), size[:, 0])
-        return flat_data[((tid * hmax + yi) * wmax + xi).long()]
+        # index_select: its backward is an index_add_ (see bsdf/dispatch.py)
+        return flat_data.index_select(0, ((tid * hmax + yi) * wmax + xi).long())
 
     c00 = fetch(x0, y0)
     c10 = fetch(x0 + 1, y0)

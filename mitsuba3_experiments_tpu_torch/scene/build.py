@@ -16,6 +16,7 @@ import copy
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..core.distributions import DiscreteDistribution, DiscreteDistribution2D
 from ..core.records import BSDFFlags
 from . import mesh as meshlib
@@ -336,8 +337,9 @@ def load_dict(scene_dict: dict, bvh_layout=None, device=None) -> tuple[Scene, di
     """Compile a scene dict; returns (Scene, meta) where meta carries the
     integrator/film/sampler settings (spp, rfilter, integrator props).
     `bvh_layout` (scene/bvh8.BVHLayout) overrides the BVH layout; None =
-    bvh8.DEFAULT_LAYOUT.  Every table of the Scene lives on `device`."""
-    device = torch.device(device if device is not None else "cpu")
+    bvh8.DEFAULT_LAYOUT.  Every table of the Scene lives on `device` (None:
+    the card, resolve_device)."""
+    device = resolve_device(device)
     mb = _MaterialBuilder()
     shapes = []
     camera = None

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import resolve_device
 from .types import BVH
 
 N_BINS = 16
@@ -26,7 +27,8 @@ def build_bvh(
     vertices: np.ndarray, faces: np.ndarray, leaf_size: int | None = None,
     layout=None, device=None,
 ) -> BVH:
-    """Build the packed 8-wide BVH (types.BVH) with its tables on `device`.
+    """Build the packed 8-wide BVH (types.BVH) with its tables on `device`
+    (None: the card).
 
     Pipeline: binary binned SAH (numpy) -> 8-wide collapse + row packing
     (scene/bvh8.py).  `layout` (bvh8.BVHLayout) selects width/leaf_cap/
@@ -59,6 +61,7 @@ def build_bvh(
     leafs_pad = np.zeros((leaf_tris.shape[0], uw), np.float32)
     leafs_pad[:, : leaf_tris.shape[1]] = leaf_tris
     unified = np.concatenate([nodes_pad, leafs_pad], axis=0)
+    device = resolve_device(device)
     return BVH(
         nodes=torch.as_tensor(nodes, device=device),
         leaf_tris=torch.as_tensor(leaf_tris, device=device),

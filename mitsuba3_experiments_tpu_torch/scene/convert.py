@@ -16,6 +16,7 @@ import typing
 import numpy as np
 import torch
 
+from .. import resolve_device
 from . import types as T
 from .bvh8 import BVHLayout
 
@@ -53,8 +54,9 @@ def _static_in(path, value):
 
 
 def scene_from_numpy(arrays: dict, device=None) -> T.Scene:
-    """The port's Scene, with every table on `device`, from the flat dict."""
-    return _build(T.Scene, arrays, torch.device(device if device is not None else "cpu"), "")
+    """The port's Scene, with every table on `device` (None: the card),
+    from the flat dict."""
+    return _build(T.Scene, arrays, resolve_device(device), "")
 
 
 def scene_to_numpy(scene) -> dict:

@@ -175,7 +175,7 @@ def test_discrete_distribution(k):
     jd = jdist.DiscreteDistribution.create(jnp.asarray(w))
     # the CDF is a sum taken in another order than jnp.cumsum's
     np.testing.assert_allclose(
-        tdist.DiscreteDistribution.create(w).cdf.numpy(), np.asarray(jd.cdf), rtol=1e-6
+        tdist.DiscreteDistribution.create(w, device="cpu").cdf.numpy(), np.asarray(jd.cdf), rtol=1e-6
     )
     # sampling, on the same tables
     td = tdist.DiscreteDistribution(
@@ -195,7 +195,7 @@ def test_discrete_distribution_2d():
     rng = np.random.default_rng(7)
     img = rng.random((8, 16)).astype(np.float32) + np.float32(0.01)
     jd = jdist.DiscreteDistribution2D.create(jnp.asarray(img))
-    td = tdist.DiscreteDistribution2D.create(img)
+    td = tdist.DiscreteDistribution2D.create(img, device="cpu")
     np.testing.assert_allclose(td.col_cdf.numpy(), np.asarray(jd.col_cdf), rtol=1e-6)
     np.testing.assert_allclose(td.row_cdf.numpy(), np.asarray(jd.row_cdf), rtol=1e-6)
     td = tdist.DiscreteDistribution2D(

@@ -30,6 +30,10 @@ def _run(code, env=None):
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert len(mods) >= 25, mods
+    for new in ("integrators.persistent", "integrators.pipelined", "integrators.replay",
+                "integrators.wavefront", "scene.params", "ops.gather_probe",
+                "ops.gather_probe_cuda"):
+        assert f"{port.__name__}.{new}" in mods, new
     code = (
         "import importlib, sys\n"
         f"for name in {mods!r}:\n"
@@ -50,9 +54,10 @@ def test_kernel_wrapper_imports_without_nvcc_or_triton():
         "import shutil, sys\n"
         "from mitsuba3_experiments_tpu_torch.intersect import bvh_cuda, bvh_torch\n"
         "from mitsuba3_experiments_tpu_torch.models import fused_mlp_cuda, nerad\n"
-        "from mitsuba3_experiments_tpu_torch.ops import prefix_sum_cuda\n"
+        "from mitsuba3_experiments_tpu_torch.ops import gather_probe, gather_probe_cuda, prefix_sum_cuda\n"
+        "from mitsuba3_experiments_tpu_torch.integrators import pipelined, replay\n"
         "assert shutil.which('nvcc') is None\n"
-        "for w in (bvh_cuda, fused_mlp_cuda, prefix_sum_cuda):\n"
+        "for w in (bvh_cuda, fused_mlp_cuda, prefix_sum_cuda, gather_probe_cuda):\n"
         "    assert w.LIBRARY.handle is None and w.launches == 0, w\n"
         "assert 'triton' not in sys.modules\n"
         "assert 'torch.utils.cpp_extension' not in sys.modules\n"

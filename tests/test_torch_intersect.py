@@ -56,7 +56,7 @@ _SCENES = {
 def scenes(request):
     make, o_box, t_box = _SCENES[request.param]
     jax_scene = jax_load_dict(make())[0]
-    return request.param, jax_scene, scene_from_numpy(scene_to_numpy(jax_scene)), o_box, t_box
+    return request.param, jax_scene, scene_from_numpy(scene_to_numpy(jax_scene), device="cpu"), o_box, t_box
 
 
 def _rays(n, o_box, t_box, seed):
@@ -168,7 +168,7 @@ def test_plain_traverse_raises_on_stack_overflow():
     """A layout whose stack is shallower than the table needs: the plain
     version raises, as the kernel's wrapper does, and drops nothing."""
     _, o_box, t_box = _SCENES["standin"]
-    ts = load_dict(standin_dict(res=(64, 36), tri_budget=20_000))[0]
+    ts = load_dict(standin_dict(res=(64, 36), tri_budget=20_000), device="cpu")[0]
     o, d, maxt, active = _rays(512, o_box, t_box, seed=6)
     b = ts.bvh
     shallow = dataclasses.replace(b.layout or DEFAULT_LAYOUT, stack_depth=8)
@@ -180,7 +180,7 @@ def test_plain_traverse_raises_on_stack_overflow():
 
 
 def test_brute_force_matches_bvh_on_sphere():
-    ts = scene_from_numpy(scene_to_numpy(jax_load_dict(_sphere_dict())[0]))
+    ts = scene_from_numpy(scene_to_numpy(jax_load_dict(_sphere_dict())[0]), device="cpu")
     o, d, maxt, active = _rays(256, (-3.0, 3.0), (-0.8, 0.8), seed=4)
     ray = Ray(o=torch.as_tensor(o), d=torch.as_tensor(d), maxt=torch.as_tensor(maxt))
     a = bvh_torch.ray_intersect(ts, ray, torch.as_tensor(active))

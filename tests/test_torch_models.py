@@ -164,18 +164,18 @@ def test_apply_mlp():
 def test_init_shapes_and_identity():
     g = torch.Generator().manual_seed(0)
     with torch.no_grad():
-        field = init_field(g, FieldConfig())
+        field = init_field(g, FieldConfig(), device="cpu")
     assert tuple(field.grid.shape) == (8, 1 << 15, 2)
     assert [tuple(l["w"].shape) for l in field.mlp] == [(32, 64), (64, 64), (64, 64), (64, 3)]
     assert float(field.grid.detach().abs().max()) <= 1e-4
     w0 = field.mlp[0]["w"].detach()
     assert abs(float(w0.std()) - (2.0 / 32) ** 0.5) < 0.03
-    ident = identity_init_mlp(torch.Generator().manual_seed(1), [8, 8, 4])
+    ident = identity_init_mlp(torch.Generator().manual_seed(1), [8, 8, 4], device="cpu")
     assert float((ident[0]["w"] - torch.eye(8)).abs().max()) < 0.1
-    again = init_field(torch.Generator().manual_seed(0), FieldConfig())
+    again = init_field(torch.Generator().manual_seed(0), FieldConfig(), device="cpu")
     assert torch.equal(again.grid, field.grid)
     tree = field_params_to_numpy(field)
-    back = field_params_from_numpy(tree)
+    back = field_params_from_numpy(tree, device="cpu")
     for a, b in zip(back.parameters(), field.parameters()):
         assert torch.equal(a, b)
 
@@ -220,7 +220,7 @@ def test_field_eval(fused):
     jcfg = dataclasses.replace(jnerad.FieldConfig(), fused=fused, fused_tile=128)
     tcfg = dataclasses.replace(FieldConfig(), fused=fused, fused_tile=128)
     params = jnerad.init_field(jax.random.PRNGKey(6), jcfg)
-    field = field_params_from_numpy(jax.tree_util.tree_map(np.asarray, params))
+    field = field_params_from_numpy(jax.tree_util.tree_map(np.asarray, params), device="cpu")
     rng = np.random.default_rng(7)
     p = rng.random((333, 3), dtype=np.float32)
     wi = _unit(rng, 333)
@@ -244,7 +244,7 @@ def _tiny_cfgs(fused):
 @pytest.fixture(scope="module")
 def cornell_pair():
     js = jax_load_dict(cornell_box(res=16, spp=1))[0]
-    return js, scene_from_numpy(scene_to_numpy(js))
+    return js, scene_from_numpy(scene_to_numpy(js), device="cpu")
 
 
 BATCH, M_RHS, LR, SEED = 256, 4, 2e-3, 3
@@ -286,7 +286,7 @@ def test_nerad_step_matches_jax(cornell_pair, fused, capsys):
     jl, jg = jax.jit(jax.value_and_grad(jloss))(params0)
 
     _, tstep = ttr.make_train_step(ts)
-    field = field_params_from_numpy(jax.tree_util.tree_map(np.asarray, params0))
+    field = field_params_from_numpy(jax.tree_util.tree_map(np.asarray, params0), device="cpu")
     opt = torch.optim.Adam(field.parameters(), lr=LR)
     tl = tstep(field, opt, SEED)
     assert np.isfinite(float(tl)) and float(tl) > 0
@@ -334,7 +334,7 @@ def test_nerad_integrator_per_lane(cornell_pair, capsys):
     params = jnerad.init_field(jax.random.PRNGKey(2), jcfg)
     # a field with some structure: larger grid features than at init
     params["grid"] = params["grid"] * 500.0
-    field = field_params_from_numpy(jax.tree_util.tree_map(np.asarray, params))
+    field = field_params_from_numpy(jax.tree_util.tree_map(np.asarray, params), device="cpu")
     jint = jnerad.NeradIntegrator(trainer=jnerad.NeradTrainer(field_cfg=jcfg), params=params)
     tint = make_integrator({"type": "nerad", "trainer": NeradTrainer(field_cfg=tcfg),
                             "params": field, "unused": 1})
@@ -368,7 +368,7 @@ def test_nerad_train_and_field_module(cornell_pair):
     field, losses = trainer.train(ts, n_iters=4, seed=1, log_every=2)
     assert len(losses) == 2 and np.isfinite(losses).all()
     with torch.no_grad():
-        start = init_field(torch.Generator().manual_seed(1), tcfg)
+        start = init_field(torch.Generator().manual_seed(1), tcfg, device="cpu")
     assert not torch.equal(start.grid, field.grid.detach())
     rng = np.random.default_rng(9)
     p = torch.as_tensor(rng.random((50, 3), dtype=np.float32))

@@ -53,7 +53,7 @@ def _cornell_sphere(res=32, spp=2):
 
 def _pair(d):
     js = jax_load_dict(d)[0]
-    return js, scene_from_numpy(scene_to_numpy(js))
+    return js, scene_from_numpy(scene_to_numpy(js), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -154,7 +154,7 @@ def test_film_put(rfilter):
     active = rng.random(5000) < 0.9
     ref = jfilm.put(jfilm.new_film(w, h), jnp.asarray(pos), jnp.asarray(val),
                     jnp.asarray(active), rfilter=rfilter)
-    got = film.put(film.new_film(w, h), torch.as_tensor(pos), torch.as_tensor(val),
+    got = film.put(film.new_film(w, h, device="cpu"), torch.as_tensor(pos), torch.as_tensor(val),
                    torch.as_tensor(active), rfilter=rfilter)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(film.develop(got).numpy(), np.asarray(jfilm.develop(ref)),

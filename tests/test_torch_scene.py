@@ -54,7 +54,7 @@ def test_load_dict_tables_byte_equal(name):
         pytest.skip("the JAX package would take its native BVH builder")
     d = SCENES[name]()
     jax_tables = scene_to_numpy(jax_load_dict(d)[0])
-    scene, meta = load_dict(d)
+    scene, meta = load_dict(d, device="cpu")
     tables = scene_to_numpy(scene)
     assert tables.keys() == jax_tables.keys()
     assert meta["spp"] == int(d["sensor"]["sampler"]["sample_count"])
@@ -78,7 +78,7 @@ def test_load_dict_tables_byte_equal(name):
 
 
 def test_standin_covers_every_bsdf_type():
-    scene, meta = load_dict(standin_dict(res=(64, 36), tri_budget=20_000))
+    scene, meta = load_dict(standin_dict(res=(64, 36), tri_budget=20_000), device="cpu")
     assert scene.materials.kinds_present == tuple(range(10))
     assert int((scene.materials.tex_id >= 0).sum()) >= 3
     assert meta["rfilter"] == "tent" and meta["integrator"]["max_depth"] == 8
@@ -102,7 +102,7 @@ def test_scene_from_numpy_round_trips_jax_scene():
 
 
 def test_scene_from_numpy_rejects_float64():
-    arrays = scene_to_numpy(load_dict(cornell_box(res=8, spp=1))[0])
+    arrays = scene_to_numpy(load_dict(cornell_box(res=8, spp=1), device="cpu")[0])
     arrays["geometry.vertices"] = arrays["geometry.vertices"].astype(np.float64)
     with pytest.raises(TypeError):
-        scene_from_numpy(arrays)
+        scene_from_numpy(arrays, device="cpu")
