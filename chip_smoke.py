@@ -7,10 +7,11 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
  1. needs a CUDA card; prints `nvidia-smi`'s name and power limit;
  2. builds the four kernels, one nvcc each, all started together: K1 the
-    BVH8 traversal (csrc/bvh_traverse.cu), K2 the fused MLP
-    (csrc/fused_mlp.cu), K3 the blocked scan (csrc/prefix_sum.cu), K4 the
-    dependent gather chain (csrc/gather_chain.cu); prints their ptxas
-    lines;
+    BVH8 traversal in persistent warps (csrc/bvh_traverse.cu), K2 the fused
+    MLP (csrc/fused_mlp.cu), K3 the single-pass look-back scan
+    (csrc/prefix_sum.cu), K4 the dependent gather chain
+    (csrc/gather_chain.cu); prints their ptxas lines (registers, stack,
+    spills);
  3. holds the kernel against its plain torch version on the same 65,536
     seeded rays, closest hit and any hit, into a 100k-triangle blob and the
     ~2M-triangle bedroom-class stand-in: closest-hit faces must be equal and
@@ -23,6 +24,9 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     (1280x720x2 = 1,843,200 lanes) is run again through `render`, and every
     traversal it launches (camera rays, bounce rays, NEE shadow rays) is
     held against the plain version on the same tensors, as in phase 3;
+    then K1 alone (no overflow check) is timed on each of those launches
+    (CUDA events, 5 repeats), printed by kind with its rays and active
+    lanes, and summed over the pass: K1's share of the main path;
  6. a small reference render (Cornell box + a 4k-triangle sphere, 32x32,
     spp 2, depth 4) on the card must agree with the same render on the CPU,
     whose plain path the CPU tests hold against the JAX package;
@@ -47,7 +51,8 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     stand-in's 1,964,564 face areas (the nerad area distribution's
     weights): K3 launched once per call and the plain scan never; each
     result against its plain version (torch.cumsum) — int32 exactly equal,
-    float32 within rtol 1e-4 of a float64 cumsum;
+    float32 within rtol 1e-4 of a float64 cumsum; then one call must make
+    exactly one device allocation, its output;
 10. one nerad step on the card against the same step on the CPU (Cornell
     box + a 4k-triangle sphere, a small fused field, batch 1,024, m_rhs 8),
     from the same parameters: losses within rtol 1e-3, MLP gradients within
@@ -91,17 +96,23 @@ from the training of phase 8, K3's from the ops entry point of phase 9 (no
 path of the renderer or trainer scans: the CDFs are built on the host, as
 in the JAX package), K4's from its probe entry point in phase 11.  The
 kernels' JSON line gives each kernel's and its plain version's times at
-the main path's shapes: K1 on the render's camera batch (phase 5; phase 3
-prints them at 65,536 rays), K2 on 524,288 field rows (phase 7), K3 on the
-stand-in's 1,964,564 face areas (phase 9), K4 at 65,536 lanes x 64 steps
-(phase 11).  Beside them, `bound_ms`, the least time the card could take
-for the same work: the larger of the bytes the work must move (each input
-read once, each output written once; for K1 and K4 the distinct table rows
-this run's data reaches) over 3.35 TB/s and its operations over the peak
-rate of their type (float32 67 TFLOP/s, bf16 989 TFLOP/s), and
+the main path's shapes: K1 on the render's camera batch (phase 5, which
+also prints the sum over the pass; phase 3 prints them at 65,536 rays), K2
+on 524,288 field rows (phase 7), K3 on the stand-in's 1,964,564 face areas
+(phase 9), K4 at 65,536 lanes x 64 steps (phase 11).  Beside them,
+`bound_ms`, the least time the card could take for the same work: the
+larger of the bytes the work must move (each input read once, each output
+written once; for K1 and K4 the distinct table rows this run's data
+reaches) over 3.35 TB/s and its operations over the peak rate of their
+type (float32 67 TFLOP/s, bf16 989 TFLOP/s), and
 `library_ms`, one PyTorch call computing the same function where there is
 one (torch.cumsum for K3; none traverses a BVH, runs the whole MLP or
-walks a dependent chain).
+walks a dependent chain).  `ms`, `plain_ms` and `library_ms` are CUDA
+events around calls made through the wrappers as a caller makes them (K1
+with its overflow check), so they include the host's launch time where a
+call is shorter than its launch.  `device_ms` is the kernel's own device
+time: the same calls queued behind a device sleep, K1 without its
+overflow check.
 
 The last two lines of standard output are the kernels' JSON line and the
 result line {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -193,6 +204,17 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps):
+    """Device milliseconds per call of `fn`, as `cuda_ms` but with the calls
+    queued behind a ~2 ms device sleep, so that the host's time to launch
+    them is not counted where a call is shorter than its launch."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(4_000_000)
+    return cuda_ms(fn, reps)
 
 
 def hold(name, kernel_out, plain_out, any_hit, n_active):
@@ -327,7 +349,7 @@ def field_inputs(field, cfg, n, device, seed=11):
 def phase_k2(device, card, field, cfg, label, timing, n=FIELD_ROWS):
     """Phase 7 (and its repeat after phase 8): K2 against apply_mlp on the
     inputs `field` gives its MLP; returns (max_abs_err, kernel ms, plain
-    ms), the times only when `timing`."""
+    ms, kernel device ms), the times only when `timing`."""
     import torch
 
     from mitsuba3_experiments_tpu_torch.models import apply_mlp, fused_mlp, fused_mlp_cuda
@@ -360,13 +382,15 @@ def phase_k2(device, card, field, cfg, label, timing, n=FIELD_ROWS):
               f"K2 ({label}) differs from apply_mlp (max abs err {err:.3e})")
         check(close >= 0.99, f"K2 ({label}): only {close:.6f} of the rows equal apply_mlp's")
         if not timing:
-            return err, None, None
+            return err, None, None, None
         for _ in range(3):
             kernel(), plain()
         k_ms = cuda_ms(kernel, 20)
         p_ms = cuda_ms(plain, 20)
-    print(f"[K2 {label}] kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms ({card})")
-    return err, k_ms, p_ms
+        k_dev = device_ms(kernel, 20)
+    print(f"[K2 {label}] kernel {k_ms:.4f} ms (device time {k_dev:.4f} ms), plain {p_ms:.4f} ms "
+          f"({card})")
+    return err, k_ms, p_ms, k_dev
 
 
 def counters():
@@ -493,15 +517,28 @@ def phase_k3(device, card, areas, sizes=SCAN_SIZES):
               f"max abs err kernel vs plain {e:.3e}")
         check(bool(torch.allclose(got.double(), ref64, rtol=1e-4, atol=0.0)),
               f"K3 {name} is not within rtol 1e-4 of a float64 cumsum")
+    # a call allocates its output and nothing else (the look-back's status
+    # words and ticket stay on the device from call to call)
+    x = cases[-1][1]
+    prefix_sum_cuda.scan_cuda(x)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats(device)["allocation.all.allocated"]
+    prefix_sum_cuda.scan_cuda(x)
+    allocs = torch.cuda.memory_stats(device)["allocation.all.allocated"] - before
+    print(f"[K3] device allocations made by one call: {allocs}")
+    check(allocs == 1, f"a K3 call made {allocs} device allocations, not only its output")
     for name, x in cases:
         k_ms = cuda_ms(lambda: prefix_sum_cuda.scan_cuda(x), 20)
         p_ms = cuda_ms(lambda: ops.prefix_sum(x), 20)
         lib_ms = cuda_ms(lambda: torch.cumsum(x, 0), 20)
+        k_dev = device_ms(lambda: prefix_sum_cuda.scan_cuda(x), 20)
+        lib_dev = device_ms(lambda: torch.cumsum(x, 0), 20)
         bound = 2 * x.numel() * x.element_size() / HBM_BYTES_S * 1e3
         print(f"[K3] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.cumsum "
-              f"{lib_ms:.4f} ms, bytes bound {bound:.4f} ms, kernel at {bound / k_ms:.3f} of it "
-              f"({card})")
-    return counts["k3"], err, k_ms, p_ms, lib_ms, bound
+              f"{lib_ms:.4f} ms, bytes bound {bound:.4f} ms, kernel at {bound / k_ms:.3f} of it; "
+              f"device time: kernel {k_dev:.4f} ms ({bound / k_dev:.3f} of the bound), "
+              f"torch.cumsum {lib_dev:.4f} ms ({card})")
+    return counts["k3"], err, k_ms, p_ms, lib_ms, bound, k_dev
 
 
 def small_nerad_scene(device):
@@ -611,17 +648,19 @@ def phase_k4(dev, card):
         for fn in (kernel, plain, ind):
             fn()
         k_ms, p_ms, i_ms = cuda_ms(kernel, 20), cuda_ms(plain, 3), cuda_ms(ind, 3)
+        k_dev = device_ms(kernel, 20)
         distinct, nbytes = gather_probe.chain_bytes(table, idx0, CHAIN_ITERS)
         bound = nbytes / HBM_BYTES_S * 1e3
         traffic = fetched * ROW_BYTES / HBM_BYTES_S * 1e3
         print(f"[K4] {n} lanes: kernel {k_ms:.4f} ms = {k_ms * 1e6 / fetched:.4f} ns/row, plain "
               f"chain {p_ms:.4f} ms = {p_ms * 1e6 / fetched:.4f} ns/row, independent index_select "
-              f"{i_ms:.4f} ms = {i_ms * 1e6 / fetched:.4f} ns/row ({card})")
+              f"{i_ms:.4f} ms = {i_ms * 1e6 / fetched:.4f} ns/row; kernel device time "
+              f"{k_dev:.4f} ms ({card})")
         print(f"[K4] {n} lanes: {distinct} distinct rows reached: bytes bound {bound:.4f} ms "
               f"(kernel at {bound / k_ms:.4f} of it); every fetch from device memory would be "
               f"{traffic:.4f} ms (kernel at {traffic / k_ms:.4f} of that)")
         if first is None:
-            first = (counts["k4"], err, k_ms, p_ms, bound)
+            first = (counts["k4"], err, k_ms, p_ms, bound, k_dev)
         del idxs
     # latency view: one thread per block on 132 blocks, so each step of a
     # lane waits for one device-memory round trip and nothing else
@@ -921,6 +960,21 @@ def main() -> int:
         err_c = max(err_c, hold(f"pass0 #{i} {kind}", out_k, out_p, kw["any_hit"],
                                 int(args[5].sum())))
         print(f"[pass0 #{i} {kind}] plain {dt:.2f} s")
+    # K1 alone on each launch of the pass, kernel only (the comparison above
+    # made the overflow check): device time, 5 repeats
+    per_ms, by_kind = [], {}
+    for i, (args, kw, _) in enumerate(made):
+        kind = "camera" if i == 0 else ("shadow" if kw["any_hit"] else "bounce")
+
+        def launch(args=args, kw=kw):
+            bvh_cuda._launch(*args, **kw)
+
+        launch()
+        ms = device_ms(launch, 5)
+        per_ms.append(ms)
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+        print(f"[pass0 #{i} {kind}] {args[2].shape[0]} rays, {int(args[5].sum())} active: "
+              f"kernel {ms:.4f} ms ({card})")
     args, kw, _ = made[0]
     n_main = args[2].shape[0]
     for _ in range(2):
@@ -928,8 +982,11 @@ def main() -> int:
     k_main_ms = cuda_ms(lambda: bvh_cuda.traverse_cuda(*args, **kw), 5)
     p_main_ms = plain_s[0] * 1e3   # the comparison's own plain call, synchronized
     print(f"[pass0] {len(made)} traversals of {n_main} rays held against plain "
-          f"({sum(plain_s):.1f} s of plain); camera batch: kernel {k_main_ms:.4f} ms, "
+          f"({sum(plain_s):.1f} s of plain); camera batch: kernel {k_main_ms:.4f} ms with the "
+          f"wrapper's overflow check, {per_ms[0]:.4f} ms of device time alone, "
           f"plain {p_main_ms:.3f} ms ({card})")
+    print(f"[pass0] K1 over the pass's {len(made)} launches: {sum(per_ms):.4f} ms ("
+          + ", ".join(f"{k} {v:.4f}" for k, v in by_kind.items()) + f") ({card})")
     # K1's least time on the camera batch: each distinct row it reaches read
     # once plus the rays in and the hits out, or its float operations
     k1_bytes = cam_distinct * ROW_BYTES + n_main * (12 + 12 + 4 + 1 + 16)
@@ -961,23 +1018,24 @@ def main() -> int:
     cfg = FieldConfig(fused=True)
     with torch.no_grad():
         field = init_field(torch.Generator().manual_seed(7), cfg, device=dev)
-    err_k2, k2_ms, k2_plain_ms = phase_k2(dev, card, field, cfg, "init field", timing=True)
+    err_k2, k2_ms, k2_plain_ms, k2_dev = phase_k2(dev, card, field, cfg, "init field",
+                                                  timing=True)
 
     # ---- phase 8: the nerad path on the stand-in ---------------------------
     trainer = NeradTrainer(field_cfg=cfg)
     train, _, trained = phase_nerad(scene, card, trainer=trainer)
-    err_trained, _, _ = phase_k2(dev, card, trained, cfg, "trained field", timing=False)
+    err_trained, _, _, _ = phase_k2(dev, card, trained, cfg, "trained field", timing=False)
     err_k2 = max(err_k2, err_trained)
 
     # ---- phase 9: K3's path, the ops entry point, against plain ------------
-    k3_launches, err_k3, k3_ms, k3_plain_ms, k3_lib_ms, k3_bound = phase_k3(
+    k3_launches, err_k3, k3_ms, k3_plain_ms, k3_lib_ms, k3_bound, k3_dev = phase_k3(
         dev, card, NeradTrainer.make_area_dist(scene).pmf)
 
     # ---- phase 10: one nerad step, card against CPU ------------------------
     phase_card_vs_cpu(dev)
 
     # ---- phase 11: K4's path, the probe entry point, against plain ---------
-    k4_launches, err_k4, k4_ms, k4_plain_ms, k4_bound = phase_k4(dev, card)
+    k4_launches, err_k4, k4_ms, k4_plain_ms, k4_bound, k4_dev = phase_k4(dev, card)
 
     # ---- phase 12: production forward + fwd+bwd, depth 8 -------------------
     target, prod, err_d = phase_production(scene, integrator, card)
@@ -1004,16 +1062,18 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "bvh8_traverse", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
          "launches": prod["k1"], "max_abs_err": max(err_a, err_b, err_c, err_d), "ms": k_main_ms,
-         "plain_ms": p_main_ms, "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
+         "plain_ms": p_main_ms, "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
+         "device_ms": per_ms[0]},
         {"name": "fused_mlp", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
          "launches": train["k2"], "max_abs_err": err_k2, "ms": k2_ms, "plain_ms": k2_plain_ms,
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None, "device_ms": k2_dev},
         {"name": "prefix_sum", "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
          "launches": k3_launches, "max_abs_err": err_k3, "ms": k3_ms, "plain_ms": k3_plain_ms,
-         "bound_ms": k3_bound, "bound_by": "bytes", "library_ms": k3_lib_ms},
+         "bound_ms": k3_bound, "bound_by": "bytes", "library_ms": k3_lib_ms,
+         "device_ms": k3_dev},
         {"name": "gather_chain", "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
          "launches": k4_launches, "max_abs_err": err_k4, "ms": k4_ms, "plain_ms": k4_plain_ms,
-         "bound_ms": k4_bound, "bound_by": "bytes", "library_ms": None},
+         "bound_ms": k4_bound, "bound_by": "bytes", "library_ms": None, "device_ms": k4_dev},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

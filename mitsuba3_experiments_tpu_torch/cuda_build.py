@@ -83,6 +83,23 @@ def stream_of(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+# device state that kernels keep from call to call, by (name, device index,
+# stream)
+_scratch: dict = {}
+
+
+def stream_scratch(name: str, device, stream: int, make):
+    """The state `name` keeps on `device` for `stream` (as `stream_of` gives
+    it), made by `make(device)` at its first use.  Launches on one stream
+    run in order, so a kernel may leave such state for the next launch to
+    find."""
+    key = (name, device.index, stream)
+    state = _scratch.get(key)
+    if state is None:
+        state = _scratch[key] = make(device)
+    return state
+
+
 def check_tensor(name, x, dtype, shape, device, align: int = 4):
     """Raises unless x is a contiguous `dtype` tensor of `shape` on
     `device` whose data is `align`-byte aligned."""

@@ -2,11 +2,20 @@
 
 Counterpart of ``mitsuba3_experiments_tpu.intersect.bvh_pallas``.  The kernel
 replaces the TPU kernel ``traverse_pallas`` and the XLA loop
-``bvh_jax._traverse``: one thread walks one ray through BVH.unified, reading
-rows with float4 loads, with an int stack in local memory.  It is bound by
-the latency of the dependent row fetches (the table is ~150 MB at 2M
-triangles, beyond the H100's 50 MB L2).  This is the simple, correct form;
-making it fast is later work.
+``bvh_jax._traverse``: each lane walks one ray at a time through
+BVH.unified, reading rows with 16-byte loads, with an int stack in local
+memory.  It is bound by the instructions it executes and the L1/L2 traffic
+of its row fetches, not by their latency, so it runs in persistent warps
+that refill their idle lanes with new rays in groups, takes a node step
+every round and batches the leaf steps, uses one-instruction
+NaN-propagating min/max and sorts the pushes over the hit children only
+(PERF.md gives the measurements).  Each lane still makes the
+same row visits and float operations as the plain version, whose bits it
+gives.
+
+The warps take rays from a counter on the device, one per (device, stream),
+that every launch leaves at 0 for the next one: no memset, and a call
+allocates only its outputs.
 
 The kernel is built by cuda_build.CudaLibrary at the first CUDA call (never
 at import).  Its own flag is --fmad=false — no FMA contraction, so the
@@ -18,7 +27,7 @@ import ctypes
 
 import torch
 
-from ..cuda_build import CudaLibrary, check_tensor, stream_of
+from ..cuda_build import CudaLibrary, check_tensor, stream_of, stream_scratch
 
 # kernel launches made (a plain int, read by tests and the smoke test)
 launches = 0
@@ -43,7 +52,7 @@ def check_overflow(face, depth: int) -> None:
 def _bind(lib):
     fn = lib.m3t_bvh8_traverse
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, ci, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp]
+    fn.argtypes = [vp, ci, vp, vp, vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, vp]
     fn.restype = ci
     lib.m3t_bvh8_max_stack.argtypes = []
     lib.m3t_bvh8_max_stack.restype = ci
@@ -54,13 +63,13 @@ def _bind(lib):
 LIBRARY = CudaLibrary("bvh_traverse", ("--fmad=false",), _bind)
 
 
-def traverse_cuda(unified, n_nodes: int, o, d, maxt, active, any_hit: bool = False,
-                  layout=None):
-    """Kernel launch: (t, face, u, v) for N rays, face == -1 and t == inf on
-    a miss.  unified (R, 88) f32; o, d (N, 3) f32; maxt (N,) f32; active
-    (N,) bool; all contiguous CUDA tensors on one device.  Raises if any
-    ray's stack overflowed (a check that waits for the kernel)."""
-    global launches
+def _work_counters(device):
+    """The ray counter and finished-warp count of a launch: two int64 zeros
+    that every launch leaves at zero."""
+    return torch.zeros((2,), dtype=torch.int64, device=device)
+
+
+def _layout(layout):
     from ..scene.bvh8 import DEFAULT_LAYOUT
 
     lay = layout if layout is not None else DEFAULT_LAYOUT
@@ -71,6 +80,15 @@ def traverse_cuda(unified, n_nodes: int, o, d, maxt, active, any_hit: bool = Fal
         )
     if not 1 <= lay.stack <= MAX_STACK:
         raise ValueError(f"stack depth {lay.stack} outside the kernel's 1..{MAX_STACK}")
+    return lay
+
+
+def _launch(unified, n_nodes: int, o, d, maxt, active, any_hit: bool = False, layout=None):
+    """Checks the arguments, launches the kernel, counts the launch and
+    returns (t, face, u, v) without waiting for the kernel; a ray whose
+    stack overflowed has face OVERFLOW."""
+    global launches
+    lay = _layout(layout)
     device = o.device
     if device.type != "cuda":
         raise ValueError(f"traverse_cuda needs CUDA tensors, got {device}")
@@ -92,15 +110,27 @@ def traverse_cuda(unified, n_nodes: int, o, d, maxt, active, any_hit: bool = Fal
     lib = LIBRARY.load()
     with torch.cuda.device(device):
         stream = stream_of(device)
+        work = stream_scratch("bvh8_traverse", device, stream, _work_counters)
         rc = lib.m3t_bvh8_traverse(
             unified.data_ptr(), int(n_nodes), o.data_ptr(), d.data_ptr(),
             maxt.data_ptr(), active.data_ptr(), int(n), int(bool(any_hit)),
             int(lay.stack), t.data_ptr(), face.data_ptr(), u.data_ptr(),
-            v.data_ptr(), stream,
+            v.data_ptr(), work.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"bvh8 traversal kernel launch failed: CUDA error {rc}")
     if n:
         launches += 1
-        check_overflow(face, lay.stack)
+    return t, face, u, v
+
+
+def traverse_cuda(unified, n_nodes: int, o, d, maxt, active, any_hit: bool = False,
+                  layout=None):
+    """Kernel launch: (t, face, u, v) for N rays, face == -1 and t == inf on
+    a miss.  unified (R, 88) f32; o, d (N, 3) f32; maxt (N,) f32; active
+    (N,) bool; all contiguous CUDA tensors on one device.  Raises if any
+    ray's stack overflowed (a check that waits for the kernel)."""
+    t, face, u, v = _launch(unified, n_nodes, o, d, maxt, active, any_hit, layout)
+    if face.numel():
+        check_overflow(face, _layout(layout).stack)
     return t, face, u, v

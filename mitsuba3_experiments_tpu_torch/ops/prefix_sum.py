@@ -4,8 +4,9 @@ Counterpart of ``mitsuba3_experiments_tpu.ops.prefix_sum``.  `prefix_sum`
 is the plain scan, as the JAX package's is ``jnp.cumsum``.
 `prefix_sum_blocked` is the counterpart of the TPU kernel
 ``prefix_sum_pallas`` (``ops/prefix_sum.py:26``): on a CUDA tensor it
-launches the hand-written blocked scan (ops/prefix_sum_cuda.py), on a CPU
-tensor it runs the plain scan, and any other device raises.
+launches the hand-written single-pass look-back scan
+(ops/prefix_sum_cuda.py), on a CPU tensor it runs the plain scan, and any
+other device raises.
 """
 from __future__ import annotations
 
@@ -24,8 +25,9 @@ def prefix_sum(x, exclusive: bool = False):
 
 
 def prefix_sum_blocked(x):
-    """Inclusive scan of a 1-D float32 or int32 tensor, in blocks of 2048
-    elements (the TPU kernel's default block)."""
+    """Inclusive scan of a 1-D float32 or int32 tensor (the TPU kernel
+    scans blocks of 2048 elements in order; the CUDA kernel, tiles of 16384
+    in one pass with a look-back)."""
     if x.device.type == "cuda":
         return prefix_sum_cuda.scan_cuda(x)
     if x.device.type == "cpu":

@@ -76,6 +76,88 @@ def test_wrapper_rejects_what_it_does_not_take(scene):
         bvh_cuda.traverse_cuda(misaligned, 50, o, d, maxt, active)
 
 
+def _equal_bits(kernel_out, plain_out):
+    """(t, face, u, v) of the kernel and the plain version equal bit for bit."""
+    for a, c in zip(kernel_out, plain_out):
+        assert torch.equal(a.view(torch.int32), c.view(torch.int32))
+
+
+def _both(scene, rays, any_hit):
+    b = scene.bvh
+    args = (b.unified, b.nodes.shape[0], *rays)
+    got = bvh_cuda.traverse_cuda(*args, any_hit=any_hit, layout=b.layout)
+    torch.cuda.synchronize()
+    return got, bvh_torch.traverse_plain(*args, any_hit, b.layout)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("n", [1, 31, 33, 4097])
+def test_kernel_sizes_around_a_warp(scene, n, any_hit):
+    """Fewer rays than a warp, one past a warp, one past a block multiple:
+    the persistent warps hand out every ray once and idle the rest."""
+    _equal_bits(*_both(scene, _rays(n, 10 + n), any_hit))
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("pattern", ["none", "alternate", "first_half", "every_33rd"])
+def test_kernel_active_masks(scene, pattern, any_hit):
+    """Inactive lanes give face -1, t inf, u = v = 0, whatever their rays."""
+    o, d, maxt, _ = _rays(5000, 20)
+    i = torch.arange(5000, device="cuda")
+    active = {"none": i < 0, "alternate": i % 2 == 0, "first_half": i < 2500,
+              "every_33rd": i % 33 == 0}[pattern]
+    got, ref = _both(scene, (o, d, maxt, active), any_hit)
+    _equal_bits(got, ref)
+    assert bool((got[1][~active] == -1).all()) and bool(torch.isinf(got[0][~active]).all())
+
+
+def _slab_plane_rays(scene, n, seed):
+    """Axis-parallel rays whose origins lie on child-box planes of the
+    table's node rows: (plane - o) * inf = 0 * inf = NaN in the slab test."""
+    b = scene.bvh
+    rng = np.random.default_rng(seed)
+    nodes = b.unified[: b.nodes.shape[0]].cpu().numpy()
+    codes = nodes[:, :8].copy().view(np.int32)
+    rows, slots = np.nonzero(codes != -1)
+    pick = rng.integers(0, rows.shape[0], n)
+    box = nodes[rows[pick], :][np.arange(n)[:, None], 8 + 6 * slots[pick][:, None] + np.arange(6)]
+    lo, hi = box[:, :3], box[:, 3:]
+    o = lo + rng.random((n, 3), dtype=np.float32) * (hi - lo)
+    axis = rng.integers(0, 3, n)
+    on_hi = rng.random(n) < 0.5
+    o[np.arange(n), axis] = np.where(on_hi, hi[np.arange(n), axis], lo[np.arange(n), axis])
+    corner = rng.random(n) < 0.25          # a quarter on a corner: three planes
+    o[corner] = np.where(on_hi[corner, None], hi[corner], lo[corner])
+    d = np.zeros((n, 3), np.float32)
+    d[np.arange(n), rng.integers(0, 3, n)] = np.where(rng.random(n) < 0.5, 1.0, -1.0)
+    maxt = np.full(n, np.inf, np.float32)
+    active = np.ones(n, bool)
+    return [torch.as_tensor(np.ascontiguousarray(x), device="cuda") for x in (o, d, maxt, active)]
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_kernel_axis_parallel_rays_on_slab_planes(scene, any_hit):
+    """The NaN path of the slab test (min.NaN / max.NaN): equal to plain."""
+    got, ref = _both(scene, _slab_plane_rays(scene, 6000, 30), any_hit)
+    _equal_bits(got, ref)
+    assert int((ref[1] >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_kernel_back_to_back_launches(scene, any_hit):
+    """Launches of different sizes on one stream with no wait between them:
+    each starts from a ray counter the one before left at 0."""
+    b = scene.bvh
+    sizes = (5000, 37, 100_000, 1, 4097)
+    rays = [_rays(n, 40 + n) for n in sizes]
+    outs = [bvh_cuda._launch(b.unified, b.nodes.shape[0], *r, any_hit=any_hit, layout=b.layout)
+            for r in rays]
+    torch.cuda.synchronize()
+    for r, got in zip(rays, outs):
+        _equal_bits(got, bvh_torch.traverse_plain(b.unified, b.nodes.shape[0], *r, any_hit,
+                                                  b.layout))
+
+
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_kernel_raises_on_stack_overflow(scene, any_hit):
     """A layout whose stack is shallower than the table needs: the kernel
@@ -169,7 +251,8 @@ def test_field_eval_fused_launches_kernel(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
-@pytest.mark.parametrize("n", [1, 255, 2047, 2048, 2049, 4096, 1_000_003])
+@pytest.mark.parametrize("n", [1, 255, 2047, 2048, 2049, 4095, 4096, 4097, 8191, 8192, 8193,
+                               16_383, 16_384, 16_385, 1_000_003])
 def test_prefix_sum_kernel_matches_plain(card, dtype, n):
     """K3 against torch.cumsum: int32 equal (wrapping), float32 within rtol
     1e-4 / atol 1e-4 of a float64 cumsum."""
@@ -190,6 +273,71 @@ def test_prefix_sum_kernel_matches_plain(card, dtype, n):
     else:
         ref = torch.cumsum(x.double(), 0)
         torch.testing.assert_close(got.double(), ref, rtol=1e-4, atol=1e-4)
+
+
+def _scan_inputs(n, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    if dtype == torch.int32:
+        return torch.randint(-2**30, 2**30, (n,), generator=g, dtype=torch.int32)
+    return torch.rand((n,), generator=g)
+
+
+def _check_scan(got, x):
+    if x.dtype == torch.int32:
+        assert torch.equal(got, torch.cumsum(x, 0, dtype=torch.int32))
+    else:
+        torch.testing.assert_close(got.double(), torch.cumsum(x.double(), 0), rtol=1e-4, atol=0.0)
+
+
+def test_prefix_sum_back_to_back_calls(card):
+    """Calls of different sizes and dtypes on one stream with no wait
+    between them: each call's tickets and status words stay its own."""
+    from mitsuba3_experiments_tpu_torch.ops import prefix_sum_cuda
+
+    plan = [(1_000_003, torch.float32), (5, torch.int32), (70_000, torch.int32),
+            (4096, torch.float32), (2_500_000, torch.int32), (1, torch.float32),
+            (12_289, torch.float32)]
+    xs = [_scan_inputs(n, dt, i).to(card) for i, (n, dt) in enumerate(plan)]
+    torch.cuda.synchronize()
+    outs = [prefix_sum_cuda.scan_cuda(x) for x in xs]
+    torch.cuda.synchronize()
+    for got, x in zip(outs, xs):
+        _check_scan(got, x)
+
+
+def test_prefix_sum_on_a_second_stream(card):
+    """A call on another stream, interleaved with calls on the default one,
+    uses that stream's own status words and ticket."""
+    from mitsuba3_experiments_tpu_torch.ops import prefix_sum_cuda
+
+    a = _scan_inputs(3_000_001, torch.int32, 1).to(card)
+    b = _scan_inputs(900_000, torch.float32, 2).to(card)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    first = prefix_sum_cuda.scan_cuda(a)
+    with torch.cuda.stream(side):
+        on_side = prefix_sum_cuda.scan_cuda(b)
+    second = prefix_sum_cuda.scan_cuda(b)
+    torch.cuda.synchronize()
+    _check_scan(first, a)
+    _check_scan(on_side, b)
+    _check_scan(second, b)
+
+
+def test_prefix_sum_epoch_wrap(card, monkeypatch):
+    """When the epochs run out the status words are zeroed once and the
+    epochs start again at 1; the results stay right across the wrap."""
+    from mitsuba3_experiments_tpu_torch.cuda_build import stream_scratch
+    from mitsuba3_experiments_tpu_torch.ops import prefix_sum_cuda
+
+    x = _scan_inputs(300_000, torch.int32, 3).to(card)
+    prefix_sum_cuda.scan_cuda(x)
+    state = stream_scratch("prefix_sum", x.device, torch.cuda.current_stream().cuda_stream,
+                           prefix_sum_cuda._StreamState)
+    monkeypatch.setattr(prefix_sum_cuda, "_EPOCH_END", state.epoch + 2)
+    for n in (300_000, 200_000, 300_000, 50_000):
+        _check_scan(prefix_sum_cuda.scan_cuda(x[:n]), x[:n])
+    assert state.epoch < 4
 
 
 def test_kernel_wrappers_reject_what_they_do_not_take(card):

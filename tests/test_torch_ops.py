@@ -52,6 +52,28 @@ def test_prefix_sum_blocked_matches_pallas_interpret(dtype, n):
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
 
 
+def test_scan_stream_state_grows_and_wraps(monkeypatch):
+    """The look-back's per-stream state (held on the CPU here): the status
+    words grow to a power of two when a call needs more and keep their size
+    otherwise; each call gets the next epoch; when the epochs run out the
+    words are zeroed once and the epochs restart at 1."""
+    st = prefix_sum_cuda._StreamState(torch.device("cpu"))
+    st.next_call(5)
+    assert st.status.numel() == 8 and st.epoch == 1
+    st.status.fill_(7)
+    st.next_call(3)
+    assert st.status.numel() == 8 and st.epoch == 2 and int(st.status[0]) == 7
+    st.next_call(9)
+    assert st.status.numel() == 16 and st.epoch == 3 and int(st.status.abs().sum()) == 0
+    st.status.fill_(7)
+    monkeypatch.setattr(prefix_sum_cuda, "_EPOCH_END", 5)
+    st.next_call(1)
+    assert st.epoch == 4 and int(st.status[0]) == 7
+    st.next_call(1)
+    assert st.epoch == 1 and int(st.status.abs().sum()) == 0
+    assert int(st.ticket[0]) == 0 and st.ticket_base == 0
+
+
 def test_prefix_sum_blocked_int32_wraps():
     x = np.full(4096, 2**30, np.int32)
     got = ops.prefix_sum_blocked(torch.as_tensor(x)).numpy()
