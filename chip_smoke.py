@@ -8,10 +8,10 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
  1. needs a CUDA card; prints `nvidia-smi`'s name and power limit;
  2. builds the four kernels, one nvcc each, all started together: K1 the
     BVH8 traversal in persistent warps (csrc/bvh_traverse.cu), K2 the fused
-    MLP (csrc/fused_mlp.cu), K3 the single-pass look-back scan
-    (csrc/prefix_sum.cu), K4 the dependent gather chain
-    (csrc/gather_chain.cu); prints their ptxas lines (registers, stack,
-    spills);
+    MLP on bf16 tensor cores (csrc/fused_mlp.cu), K3 the single-pass
+    look-back scan (csrc/prefix_sum.cu), K4 the dependent gather chain in
+    coalesced row loads (csrc/gather_chain.cu); prints their ptxas lines
+    (registers, stack, spills);
  3. holds the kernel against its plain torch version on the same 65,536
     seeded rays, closest hit and any hit, into a 100k-triangle blob and the
     ~2M-triangle bedroom-class stand-in: closest-hit faces must be equal and
@@ -35,7 +35,9 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     seeded torch.Generator, hashgrid_encode + sh_eval features of 524,288
     seeded points and directions (the RHS batch of a training step):
     allclose at rtol 2e-2 / atol 2e-2, and at least 99% of the rows equal
-    to 1e-5; both timed with CUDA events;
+    to 1e-5; both timed with CUDA events; then K2 alone at 16,384 rows (the
+    step's left-hand side) and 921,600 (the nerad render), the same checks,
+    device time beside the bound;
  8. the neural-radiosity path on phase 3's stand-in: NeradTrainer() at its
     defaults (batch 16,384, m_rhs 32: 524,288 RHS lanes; lr 1e-3) with
     FieldConfig(fused=True), 50 steps — every loss finite, the mean of the
@@ -63,7 +65,9 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     final index equal on every lane and the accumulator equal bit for bit
     to the plain chain's; ns per row of the kernel, the plain chain and
     independent index_select (CUDA events); K4's bytes bound and its share
-    of it; one step's round trip at 132 lanes of one thread per block;
+    of it; the L2 diagnostic: the same at both lane counts over a 65,536-row
+    table (23.1 MB, inside the L2), equal to plain, ns per row; one step's
+    round trip at 132 chains of one chain per block;
 12. the production forward and fwd+bwd at depth 8 on phase 3's stand-in
     (1280x720, spp 4, rr_depth 4): render_persistent with the tent filter,
     whose image must equal render()'s per pixel (rtol 1e-4 / atol 1e-5: the
@@ -140,10 +144,13 @@ K3_SOURCE = "mitsuba3_experiments_tpu_torch/csrc/prefix_sum.cu"
 K4_REPLACES = "scripts/pallas_gather_probe.py:79"
 K4_SOURCE = "mitsuba3_experiments_tpu_torch/csrc/gather_chain.cu"
 FIELD_ROWS = 524_288       # NeradTrainer() RHS lanes: 16,384 x 32
+K2_OTHER_ROWS = (16_384, 921_600)   # the nerad step's LHS batch, the 1280x720 nerad render
+K2_SIZES = (32, 64, 64, 64, 3)      # FieldConfig()'s MLP
 TRAIN_STEPS = 50
 SCAN_SIZES = (1_843_200, 1 << 26)
 CHAIN_LANES = (65_536, 1_843_200)
 CHAIN_ITERS = 64
+L2_TABLE_ROWS = 65_536     # K4's diagnostic table, 23.1 MB: fits in the H100's 50 MB L2
 REPLAY_CHUNK = 131_072
 DEEP = 65                  # the reference bedroom's max_depth
 # the card's published peaks (H100 SXM data sheet, 700 W)
@@ -391,6 +398,48 @@ def phase_k2(device, card, field, cfg, label, timing, n=FIELD_ROWS):
     print(f"[K2 {label}] kernel {k_ms:.4f} ms (device time {k_dev:.4f} ms), plain {p_ms:.4f} ms "
           f"({card})")
     return err, k_ms, p_ms, k_dev
+
+
+def k2_least_ms(n, sizes):
+    """K2's least time on n rows: the features in, the weights and the
+    outputs once, or its bf16 products at the tensor cores' rate; returns
+    (ms, "bytes" or "operations") and prints both terms."""
+    nbytes = n * (sizes[0] + sizes[-1]) * 4 + sum(
+        (a + 1) * b * 4 for a, b in zip(sizes[:-1], sizes[1:]))
+    ops = 2 * n * sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
+    bound = max(nbytes / HBM_BYTES_S, ops / BF16_OPS_S) * 1e3
+    by = "bytes" if nbytes / HBM_BYTES_S >= ops / BF16_OPS_S else "operations"
+    print(f"[K2] bound on {n} rows: {nbytes / 1e6:.1f} MB = {nbytes / HBM_BYTES_S * 1e3:.4f} ms, "
+          f"{ops / 1e9:.2f} G bf16 operations = {ops / BF16_OPS_S * 1e3:.4f} ms: {bound:.4f} ms by "
+          f"{by}")
+    return bound, by
+
+
+def phase_k2_sizes(device, card, field, cfg):
+    """Phase 7's other row counts: K2 at the nerad step's left-hand side
+    (16,384 rows) and the nerad render (921,600), each against apply_mlp
+    and timed (device time) beside its bound."""
+    import torch
+
+    from mitsuba3_experiments_tpu_torch.models import apply_mlp, fused_mlp, fused_mlp_cuda
+
+    flat = tuple(t.detach() for t in fused_mlp.mlp_params_flat(field.mlp))
+    params = [{"w": w, "b": b} for w, b in zip(flat[0::2], flat[1::2])]
+    for n in K2_OTHER_ROWS:
+        with torch.no_grad():
+            h = field_inputs(field, cfg, n, device, seed=12)
+            got = fused_mlp_cuda.fused_mlp_cuda(flat, h, K2_SIZES, "leaky_relu", cfg.fused_tile)
+            ref = apply_mlp(params, h)
+            torch.cuda.synchronize()
+            close = float(torch.isclose(got, ref, rtol=1e-5, atol=1e-5).all(dim=1).float().mean())
+            check(bool(torch.allclose(got, ref, rtol=2e-2, atol=2e-2)) and close >= 0.99,
+                  f"K2 at {n} rows differs from apply_mlp (rows equal {close:.6f})")
+            k_dev = device_ms(
+                lambda: fused_mlp_cuda.fused_mlp_cuda(flat, h, K2_SIZES, "leaky_relu",
+                                                      cfg.fused_tile), 20)
+        bound, _ = k2_least_ms(n, K2_SIZES)
+        print(f"[K2 init field] {n} rows: rows equal to 1e-5: {close:.6f}; kernel device time "
+              f"{k_dev:.4f} ms, bound {bound:.4f} ms, kernel at {bound / k_dev:.4f} of it ({card})")
 
 
 def counters():
@@ -662,8 +711,25 @@ def phase_k4(dev, card):
         if first is None:
             first = (counts["k4"], err, k_ms, p_ms, bound, k_dev)
         del idxs
-    # latency view: one thread per block on 132 blocks, so each step of a
-    # lane waits for one device-memory round trip and nothing else
+    # the L2 diagnostic: the same chains over a table that fits in the 50 MB
+    # L2 (65,536 rows, 23.1 MB); a time per row as on the big table means
+    # that device memory is not what bounds the kernel
+    small = torch.as_tensor(gather_probe.build_table(0, rows=L2_TABLE_ROWS), device=dev)
+    for n in CHAIN_LANES:
+        idx0 = torch.as_tensor(rng.integers(0, L2_TABLE_ROWS, n).astype(np.int32), device=dev)
+        idx, acc = gather_probe_cuda.dep_chain_cuda(small, idx0, CHAIN_ITERS)
+        ref_idx, ref_acc = gather_probe.dep_chain_plain(small, idx0, CHAIN_ITERS)
+        check(bool(torch.equal(idx, ref_idx) and torch.equal(acc.view(torch.int32),
+                                                             ref_acc.view(torch.int32))),
+              f"K4 differs from the plain chain on the L2-sized table at {n} lanes")
+        k_dev = device_ms(lambda idx0=idx0: gather_probe_cuda.dep_chain_cuda(
+            small, idx0, CHAIN_ITERS, check=False), 20)
+        print(f"[K4] L2-sized table ({L2_TABLE_ROWS} rows, {small.numel() * 4 / 1e6:.1f} MB), {n} "
+              f"lanes x {CHAIN_ITERS}: equal to plain; kernel device time {k_dev:.4f} ms = "
+              f"{k_dev * 1e6 / (n * CHAIN_ITERS):.4f} ns/row ({card})")
+    del small
+    # latency view: one chain per block on 132 blocks, so each step of a
+    # chain waits for one device-memory round trip and nothing else
     idx0 = torch.as_tensor(rng.integers(0, rows_n, 132).astype(np.int32), device=dev)
     def lat():
         gather_probe_cuda.dep_chain_cuda(table, idx0, CHAIN_ITERS, block=1, check=False)
@@ -1020,6 +1086,7 @@ def main() -> int:
         field = init_field(torch.Generator().manual_seed(7), cfg, device=dev)
     err_k2, k2_ms, k2_plain_ms, k2_dev = phase_k2(dev, card, field, cfg, "init field",
                                                   timing=True)
+    phase_k2_sizes(dev, card, field, cfg)
 
     # ---- phase 8: the nerad path on the stand-in ---------------------------
     trainer = NeradTrainer(field_cfg=cfg)
@@ -1046,18 +1113,9 @@ def main() -> int:
     # ---- phase 14: record + replay, card against CPU -----------------------
     phase_card_vs_cpu_replay(dev)
 
-    # K2's least time on 524,288 rows: the features in, the weights and the
-    # outputs once, or its bf16 products at the tensor cores' rate
-    sizes = (32, 64, 64, 64, 3)
-    k2_bytes = FIELD_ROWS * (sizes[0] + sizes[-1]) * 4 + sum(
-        (a + 1) * b * 4 for a, b in zip(sizes[:-1], sizes[1:]))
-    k2_ops = 2 * FIELD_ROWS * sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
-    k2_bound = max(k2_bytes / HBM_BYTES_S, k2_ops / BF16_OPS_S) * 1e3
-    k2_by = "bytes" if k2_bytes / HBM_BYTES_S >= k2_ops / BF16_OPS_S else "operations"
-    print(f"[K2] bound on {FIELD_ROWS} rows: {k2_bytes / 1e6:.1f} MB = "
-          f"{k2_bytes / HBM_BYTES_S * 1e3:.4f} ms, {k2_ops / 1e9:.2f} G bf16 operations = "
-          f"{k2_ops / BF16_OPS_S * 1e3:.4f} ms: {k2_bound:.4f} ms by {k2_by}, kernel at "
-          f"{k2_bound / k2_ms:.4f} of it")
+    k2_bound, k2_by = k2_least_ms(FIELD_ROWS, K2_SIZES)
+    print(f"[K2] {FIELD_ROWS} rows: kernel at {k2_bound / k2_ms:.4f} of the bound, device time at "
+          f"{k2_bound / k2_dev:.4f} of it")
     print(f"[smoke] total {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": [
         {"name": "bvh8_traverse", "route": "cuda", "source": SOURCE, "replaces": REPLACES,

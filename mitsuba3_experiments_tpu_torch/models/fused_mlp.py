@@ -12,7 +12,7 @@ Counterpart of ``mitsuba3_experiments_tpu.models.pallas_mlp``:
     autograd and returns its gradients, as ``_fused_bwd`` does.  There is no
     backward kernel, as there is none in the JAX package.
 
-`tile` is the number of rows one CUDA block takes (one thread per row), as
+`tile` is the number of rows one CUDA block takes per step of its loop, as
 it is the rows per grid step of the TPU kernel; the CPU path ignores it.
 """
 from __future__ import annotations

@@ -1,12 +1,15 @@
 """Wrapper of the CUDA fused MLP forward (csrc/fused_mlp.cu).
 
 Replaces the TPU kernel ``fused_mlp_forward``
-(``mitsuba3_experiments_tpu/models/pallas_mlp.py:28``): one block of
-`tile` threads takes `tile` rows, one thread per row; all layers' weights,
-rounded to bf16, sit in shared memory and each row's activations stay on
-chip from the input to the output, so only the (n, sizes[-1]) result is
-written.  The kernel is bound by float32 FMA throughput; tensor cores are
-not used yet.  See the source for the layout.
+(``mitsuba3_experiments_tpu/models/pallas_mlp.py:28``).  Every layer runs
+on the bf16 tensor cores (mma.sync m16n8k16, float32 sums); a warp owns 16
+rows at a time and keeps their activations in registers from the input to
+the output, so only the (n, sizes[-1]) result is written.  All layers'
+weights, rounded to bf16, are staged once per block in shared memory; the
+grid holds only the blocks resident on the card, each taking `tile`-row
+steps, and each warp loads its next 16 input rows while it computes the
+current ones.  The kernel is bound by the bytes of its input.  See the
+source for the layout.
 """
 from __future__ import annotations
 
@@ -23,10 +26,12 @@ ACT_CODES = {"none": 0, "relu": 1, "leaky_relu": 2}
 
 
 def _bind(lib):
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = lib.m3t_fused_mlp
-    fn.argtypes = [vp, vp, vp, ci, ci, vp, vp, ci, ci, vp]
+    fn.argtypes = [vp, vp, vp, ci, ci, vp, vp, ll, ci, vp]
     fn.restype = ci
+    lib.m3t_fused_mlp_grid.argtypes = [vp, ci, ll, ci]
+    lib.m3t_fused_mlp_grid.restype = ll
     lib.m3t_fused_mlp_check.argtypes = [vp, ci, ci, ctypes.c_char_p, ci]
     lib.m3t_fused_mlp_check.restype = ci
 
@@ -37,7 +42,8 @@ LIBRARY = CudaLibrary("fused_mlp", (), _bind)
 def fused_mlp_cuda(params_flat, x, sizes, hidden_act: str = "leaky_relu", tile: int = 512):
     """Kernel launch.  params_flat: (w0, b0, w1, b1, ...) float32 CUDA
     tensors, w_i (sizes[i], sizes[i+1]), b_i (sizes[i+1],); x (n,
-    sizes[0]) float32 -> (n, sizes[-1]) float32."""
+    sizes[0]) float32 -> (n, sizes[-1]) float32.  tile: rows per block
+    step (the kernel says which it takes)."""
     global launches
     sizes = tuple(int(s) for s in sizes)
     if hidden_act not in ACT_CODES:
@@ -50,8 +56,6 @@ def fused_mlp_cuda(params_flat, x, sizes, hidden_act: str = "leaky_relu", tile: 
         raise ValueError(f"{len(params_flat)} parameter tensors for {n_layers} layers")
     n = x.shape[0]
     check_tensor("x", x, torch.float32, (n, sizes[0]), device)
-    if n >= 2**31:
-        raise ValueError("too many rows for one launch")
     ws, bs = params_flat[0::2], params_flat[1::2]
     for i in range(n_layers):
         check_tensor(f"w{i}", ws[i], torch.float32, (sizes[i], sizes[i + 1]), device)
@@ -76,3 +80,19 @@ def fused_mlp_cuda(params_flat, x, sizes, hidden_act: str = "leaky_relu", tile: 
         raise RuntimeError(f"fused MLP kernel launch failed: CUDA error {rc}")
     launches += 1
     return out
+
+
+def grid_blocks(sizes, n: int, tile: int, device) -> int:
+    """Blocks of the persistent grid a launch on `device` takes for n rows:
+    the blocks resident on the card at once, or fewer when n has fewer
+    tiles."""
+    sizes = tuple(int(s) for s in sizes)
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"grid_blocks needs a CUDA device, got {device}")
+    lib = LIBRARY.load()
+    with torch.cuda.device(device):
+        blocks = lib.m3t_fused_mlp_grid((ctypes.c_int * len(sizes))(*sizes), len(sizes) - 1,
+                                        int(n), int(tile))
+    if blocks < 1:
+        raise ValueError(f"fused MLP: no grid for sizes {sizes}, n {n}, tile {tile}")
+    return blocks

@@ -46,7 +46,7 @@ class FieldConfig:
     depth: int = 4
     # fused=True evaluates the MLP with the fused CUDA kernel on the card
     # (activations on chip across layers); the backward recomputes the
-    # plain path (models/fused_mlp.py).  fused_tile: rows per CUDA block.
+    # plain path (models/fused_mlp.py).  fused_tile: rows per CUDA block step.
     fused: bool = False
     fused_tile: int = 512
 

@@ -1,11 +1,13 @@
 """Wrapper of the CUDA dependent-gather chain (csrc/gather_chain.cu), K4.
 
 Replaces the TPU kernel ``pallas_dep`` (``scripts/pallas_gather_probe.py:79``):
-per lane, `iters` steps of ``row = table[idx]; acc += row[1]; idx =
-int(row[0])`` with the index in a register and the whole 352-byte row
-fetched each step.  It is bound by the latency of the chain (one
-device-memory round trip per step and lane) unless enough lanes are in
-flight to reach the bytes bound, n * iters * 352 B / 3.35 TB/s.
+per lane (a chain), `iters` steps of ``row = table[idx]; acc += row[1];
+idx = int(row[0])``, the whole 352-byte row fetched each step.  A group of
+threads shares a chain and fetches its row with one coalesced warp load;
+the group's first thread broadcasts the next index and row[1] by shuffle,
+and each group interleaves a few chains to keep rows in flight.  It is
+bound by the latency of the chain (one row fetch per step) and by the
+bytes of the distinct rows it reaches (`gather_probe.chain_bytes`).
 """
 from __future__ import annotations
 
@@ -39,7 +41,8 @@ def dep_chain_cuda(table, idx0, iters: int, block: int = 256, check: bool = True
     """Kernel launch: (final idx (n,) int32, acc (n,) float32) of the chain
     from idx0.  table (R, 88) float32 and idx0 (n,) int32, contiguous CUDA
     tensors on one device, the table 16-byte aligned; column 0 of the table
-    holds the next row index as an exact float.  With `check` the call
+    holds the next row index as an exact float.  block: chains per CUDA
+    block (1..1024; 1 runs one chain per block).  With `check` the call
     waits for the kernel and raises if a chain left [0, R) (its lane
     returns idx -1 instead of reading out of bounds)."""
     global launches
@@ -50,7 +53,7 @@ def dep_chain_cuda(table, idx0, iters: int, block: int = 256, check: bool = True
     check_tensor("table", table, torch.float32, (rows, ROW_FLOATS), device, 16)
     check_tensor("idx0", idx0, torch.int32, (n,), device)
     if not 1 <= block <= 1024:
-        raise ValueError(f"block {block} outside 1..1024 threads")
+        raise ValueError(f"block {block} outside 1..1024 chains")
     if iters < 0 or n >= 2**31:
         raise ValueError(f"iters {iters} / n {n} outside what the kernel takes")
     out_idx = torch.empty((n,), dtype=torch.int32, device=device)

@@ -11,8 +11,9 @@ a seeded table shaped like the stand-in's unified BVH table (431,104 rows
 of 88 float32, 151.8 MB, three times the H100's L2), three ways, each with
 CUDA events after a warm-up:
 
-  * kernel:    K4 (csrc/gather_chain.cu), one thread per lane, the whole
-               352-byte row per step, `block` threads per block;
+  * kernel:    K4 (csrc/gather_chain.cu), a group of threads per lane
+               (chain) fetching the whole 352-byte row per step in one
+               coalesced load, `block` chains per block;
   * torch_dep: the plain chain, a loop of `index_select` (the analogue of
                the probe's xla_dep);
   * torch_ind: `index_select` over precomputed independent indices, the

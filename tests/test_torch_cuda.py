@@ -212,6 +212,104 @@ def test_fused_mlp_kernel_matches_plain(card, sizes, tile, n):
     assert float(close) >= 0.9
 
 
+def _fused_vs_plain(sizes, n, tile, card, seed=1):
+    """K2 on seeded inputs against apply_mlp, with the same tolerances as
+    test_fused_mlp_kernel_matches_plain."""
+    from mitsuba3_experiments_tpu_torch.models import apply_mlp, fused_mlp_cuda
+    from mitsuba3_experiments_tpu_torch.models.fused_mlp import mlp_params_flat
+
+    params = _mlp(list(sizes), seed, card)
+    x = torch.randn((n, sizes[0]), generator=torch.Generator().manual_seed(seed + 1)).to(card)
+    got = fused_mlp_cuda.fused_mlp_cuda(mlp_params_flat(params), x, sizes, "leaky_relu", tile)
+    torch.cuda.synchronize()
+    ref = apply_mlp(params, x)
+    assert got.shape == ref.shape == (n, sizes[-1])
+    torch.testing.assert_close(got, ref, rtol=2e-2, atol=2e-2)
+    assert float(torch.isclose(got, ref, rtol=1e-5, atol=1e-5).all(dim=1).float().mean()) >= 0.9
+
+
+@pytest.mark.parametrize("sizes", [(24, 32, 32, 3), (7, 20, 24, 3), (20, 24, 20, 5), (33, 24, 1)])
+@pytest.mark.parametrize("n", [1, 15, 17, 4099])
+def test_fused_mlp_kernel_padded_widths(card, sizes, n):
+    """Widths padded with zero weights on both sides of a layer (k to 16,
+    hidden n to 16, the output to 8), around a 16-row group."""
+    _fused_vs_plain(sizes, n, 64, card)
+
+
+@pytest.mark.parametrize("tile", [64, 512])
+@pytest.mark.parametrize("offset", [-1, 0, 1])
+def test_fused_mlp_kernel_persistent_grid_edges(card, tile, offset):
+    """n at one tile per resident block, and one row either side: the last
+    block's second step holds one row, or a block has one row short."""
+    from mitsuba3_experiments_tpu_torch.models import fused_mlp_cuda
+
+    sizes = (32, 64, 64, 64, 3)
+    blocks = fused_mlp_cuda.grid_blocks(sizes, 1 << 30, tile, card)
+    n = tile * blocks + offset
+    assert fused_mlp_cuda.grid_blocks(sizes, n, tile, card) == blocks
+    _fused_vs_plain(sizes, n, tile, card)
+
+
+def test_fused_mlp_kernel_on_two_streams(card):
+    """Two calls back to back on two streams, no wait between them."""
+    from mitsuba3_experiments_tpu_torch.models import apply_mlp, fused_mlp_cuda
+    from mitsuba3_experiments_tpu_torch.models.fused_mlp import mlp_params_flat
+
+    sizes = (32, 64, 64, 64, 3)
+    pa, pb = _mlp(list(sizes), 11, card), _mlp(list(sizes), 12, card)
+    xa = torch.randn((300_001, 32), generator=torch.Generator().manual_seed(13)).to(card)
+    xb = torch.randn((70_003, 32), generator=torch.Generator().manual_seed(14)).to(card)
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    a = fused_mlp_cuda.fused_mlp_cuda(mlp_params_flat(pa), xa, sizes)
+    with torch.cuda.stream(side):
+        b = fused_mlp_cuda.fused_mlp_cuda(mlp_params_flat(pb), xb, sizes)
+    torch.cuda.synchronize()
+    for got, p, x in ((a, pa, xa), (b, pb, xb)):
+        ref = apply_mlp(p, x)
+        torch.testing.assert_close(got, ref, rtol=2e-2, atol=2e-2)
+        assert float(torch.isclose(got, ref, rtol=1e-5, atol=1e-5).all(dim=1).float().mean()) >= 0.9
+
+
+def _weight_bytes(sizes):
+    """Shared memory K2 stages for `sizes`: bf16 weights and float32 biases,
+    the input padded to 32, 64 or 128 columns, every hidden layer to one
+    such width (at least the input's), the output to a multiple of 8."""
+    cls = lambda v: 32 if v <= 32 else 64 if v <= 64 else 128
+    kin = cls(sizes[0])
+    kh = max(cls(max(sizes[1:-1], default=0)), kin)
+    n_layers = len(sizes) - 1
+    total = 0
+    for i in range(n_layers):
+        k = kin if i == 0 else kh
+        np_ = -(-sizes[-1] // 8) * 8 if i == n_layers - 1 else kh
+        total += k * np_ * 2 + np_ * 4
+    return total
+
+
+def test_fused_mlp_kernel_at_the_shared_memory_limit(card):
+    """The widest MLP of 128-wide layers whose weights fit the card's
+    shared memory runs and matches plain; one output column more (a
+    further n8 tile) does not fit, and the wrapper raises the check's
+    reason."""
+    from mitsuba3_experiments_tpu_torch.models import fused_mlp_cuda
+    from mitsuba3_experiments_tpu_torch.models.fused_mlp import mlp_params_flat
+
+    limit = torch.cuda.get_device_properties(card).shared_memory_per_block_optin
+    hidden = 1
+    while _weight_bytes((128,) * (hidden + 2) + (8,)) <= limit:
+        hidden += 1
+    body = (128,) * (hidden + 1)          # `hidden` layers of 128 -> 128, then the head from 128
+    out = max(o for o in range(8, 129, 8) if _weight_bytes(body + (o,)) <= limit)
+    fits, over = body + (out,), body + (out + 1,)
+    assert _weight_bytes(fits) <= limit < _weight_bytes(over) and len(fits) - 1 <= 8
+    _fused_vs_plain(fits, 1000, 128, card)
+    params = _mlp(list(over), 2, card)
+    x = torch.zeros((10, 128), device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_mlp_cuda.fused_mlp_cuda(mlp_params_flat(params), x, over)
+
+
 def test_fused_apply_mlp_grad_on_card(card):
     """fused_apply_mlp's gradient on the card (recomputed through apply_mlp)
     equals the plain path's autograd."""
@@ -385,6 +483,24 @@ def test_gather_chain_kernel_matches_plain(card, rows, lanes, iters):
     assert gather_probe_cuda.launches == launches + 1 and gather_probe.plain_calls == calls
     ref_idx, ref_acc = gather_probe.dep_chain_plain(table, idx0, iters)
     assert torch.equal(idx, ref_idx) and torch.equal(acc, ref_acc)
+
+
+@pytest.mark.parametrize("lanes,block,iters", [(7, 256, 9), (1001, 256, 9), (4097, 3, 5),
+                                               (132, 1, 17), (2049, 1024, 4), (500, 64, 0)])
+def test_gather_chain_kernel_groups_and_blocks(card, lanes, block, iters):
+    """Chains not a multiple of a warp's chains or of the block, one chain
+    per block, the largest block and no steps at all: bit-equal to the
+    plain chain on every lane."""
+    from mitsuba3_experiments_tpu_torch.ops import gather_probe, gather_probe_cuda
+
+    table = torch.as_tensor(gather_probe.build_table(8, rows=50_000), device=card)
+    idx0 = torch.as_tensor(np.random.default_rng(lanes).integers(0, 50_000, lanes).astype(np.int32),
+                           device=card)
+    idx, acc = gather_probe_cuda.dep_chain_cuda(table, idx0, iters, block=block)
+    torch.cuda.synchronize()
+    ref_idx, ref_acc = gather_probe.dep_chain_plain(table, idx0, iters)
+    assert torch.equal(idx, ref_idx)
+    assert torch.equal(acc.view(torch.int32), ref_acc.view(torch.int32))
 
 
 def test_gather_chain_kernel_stops_at_a_bad_index(card):

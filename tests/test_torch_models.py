@@ -213,6 +213,24 @@ def test_fused_mlp_forward_rejects_other_devices():
         fused_mlp.fused_mlp_forward(flat, torch.zeros((5, 4), device="meta"), sizes)
 
 
+def test_fused_mlp_kernel_wrapper_takes_only_cuda_tensors():
+    """The kernel's wrapper and its grid helper refuse CPU tensors and a
+    bad activation before they build or load the library."""
+    from mitsuba3_experiments_tpu_torch.models import fused_mlp_cuda
+
+    sizes = (4, 8, 3)
+    _, tp = _mlp_pair(sizes, 7)
+    flat = fused_mlp.mlp_params_flat(tp)
+    launches = fused_mlp_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp_cuda.fused_mlp_cuda(flat, torch.zeros((5, 4)), sizes)
+    with pytest.raises(ValueError, match="activation"):
+        fused_mlp_cuda.fused_mlp_cuda(flat, torch.zeros((5, 4)), sizes, hidden_act="gelu")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mlp_cuda.grid_blocks(sizes, 100, 512, torch.device("cpu"))
+    assert fused_mlp_cuda.launches == launches and fused_mlp_cuda.LIBRARY.handle is None
+
+
 @pytest.mark.parametrize("fused", [False, True])
 def test_field_eval(fused):
     """field_eval at FieldConfig's defaults (fused: tile 128, as
