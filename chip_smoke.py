@@ -6,16 +6,19 @@
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
  1. needs a CUDA card; prints `nvidia-smi`'s name and power limit;
- 2. builds the four kernels, one nvcc each, all started together: K1 the
-    BVH8 traversal in persistent warps (csrc/bvh_traverse.cu), K2 the fused
-    MLP on bf16 tensor cores (csrc/fused_mlp.cu), K3 the single-pass
-    look-back scan (csrc/prefix_sum.cu), K4 the dependent gather chain in
-    coalesced row loads (csrc/gather_chain.cu); prints their ptxas lines
-    (registers, stack, spills);
+ 2. builds the four kernels, one nvcc each, and the host library (g++ on
+    native/*.cpp), all started together: K1 the BVH8 traversal in
+    persistent warps (csrc/bvh_traverse.cu), K2 the fused MLP on bf16
+    tensor cores (csrc/fused_mlp.cu), K3 the single-pass look-back scan
+    (csrc/prefix_sum.cu), K4 the dependent gather chain in coalesced row
+    loads (csrc/gather_chain.cu); prints their ptxas lines (registers,
+    stack, spills) and each build's seconds;
  3. holds the kernel against its plain torch version on the same 65,536
     seeded rays, closest hit and any hit, into a 100k-triangle blob and the
-    ~2M-triangle bedroom-class stand-in: closest-hit faces must be equal and
-    t/u/v allclose (rtol 1e-6, atol 1e-7); any-hit hit/miss equal;
+    ~2M-triangle bedroom-class stand-in, both in the default spatial-split
+    (SBVH) tree, whose leaves must repeat faces: closest-hit faces must be
+    equal and t/u/v allclose (rtol 1e-6, atol 1e-7); any-hit hit/miss
+    equal; prints the stand-in's build seconds;
  4. the main path: load_dict(standin_dict()) at 1280x720, spp 4, then
     render(scene, PathIntegrator(max_depth=8, rr_depth=4), spp=4,
     rfilter="tent") — the image must be finite with a mean above 0, the
@@ -27,9 +30,20 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     then K1 alone (no overflow check) is timed on each of those launches
     (CUDA events, 5 repeats), printed by kind with its rays and active
     lanes, and summed over the pass: K1's share of the main path;
+ 5b. the stand-in built again with object splits only (BVHLayout(sbvh=
+    False)): its build seconds, and for each tree the rows fetched per
+    camera ray and K1's bound from the distinct rows its camera batch
+    reaches (plain traversal), then K1's device time on the camera batch
+    and summed over the first pass's launches, tree by tree in turns
+    (spatial, object, object, spatial);
  6. a small reference render (Cornell box + a 4k-triangle sphere, 32x32,
     spp 2, depth 4) on the card must agree with the same render on the CPU,
     whose plain path the CPU tests hold against the JAX package;
+ 6b. the differentiable render (PathIntegrator(differentiable=True)) of
+    that scene at spp 4, depth 4: the gradients of an MSE with respect to
+    materials.base_color and emitters.radiance on the card equal the CPU's
+    (rtol 1e-3 / atol 1e-4 max|g|) and the card's replay_render_grad on
+    the same seed (rtol 5e-3 / atol 5e-4 max|g|);
  7. K2 against its plain version (apply_mlp) on the field's real inputs at
     full width: FieldConfig() (sizes 32-64-64-64-3), init_field from a
     seeded torch.Generator, hashgrid_encode + sh_eval features of 524,288
@@ -47,6 +61,16 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     at 1280x720 — the image finite with a mean above 0, K2 launched; then
     phase 7's check again on the trained field, whose biases and hash grid
     are no longer those of init_field (zero biases, grid features ~1e-4);
+ 8b. neural radiance caching on the stand-in: NRCTrainer with
+    FieldConfig(fused=True) at batch 16,384 for 24 steps — every loss
+    finite, K1 and K2 launched, no plain traversal, no plain MLP forward
+    outside the backward's recompute; every K1 launch of the first step
+    held against the plain traversal, as in phase 3; K2 held against
+    apply_mlp on the first step's cache-query rows (at least 0.99 of them
+    within 1e-5) and timed there; then the stand-in rendered at 1280x720,
+    spp 1 by NRCIntegrator with the trained cache (K1 and K2 alone), and
+    again with the plain MLP in the same cache: allclose within rtol 2e-2 /
+    atol 2e-3;
  9. K3's path, the ops entry point ops.prefix_sum_blocked, driven as a
     caller would on int32 at 1,843,200 (the render's wavefront) and 2^26
     elements, float32 uniform in [0, 1) at the same sizes, and the
@@ -89,16 +113,24 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 13. the depth-65 companion (the reference bedroom's depth): 1280x720,
     spp 1, max_depth 65, replay_grads(mode="auto" -> sorted) fed the
     recorder's film: gradients finite and nonzero, seconds and rays/s;
+13b. the truncated replay: the stand-in's camera at 32x18, spp 1, depth
+    32, chunks of 64 rows — at least one chunk's longest path must be at
+    most half the depth; replay_grads(mode="trunc"), which is the full
+    replay (its depth loop stops once a chunk has no live row), gives
+    finite, nonzero gradients; timed;
 14. record and replay on the card against the CPU on the 32x24
     sphere / floor / light scene (spp 2, depth 4): prims and occlusion
     equal, gradients within rtol 1e-3 / atol 1e-4 max|g|.
 
 Each kernel's counts are set to 0 just before the path that runs it and
-read just after: K1's around the render of phase 4 and again around the
-production fwd+bwd of phase 12 (whose count the JSON line gives), K2's
-from the training of phase 8, K3's from the ops entry point of phase 9 (no
-path of the renderer or trainer scans: the CDFs are built on the host, as
-in the JAX package), K4's from its probe entry point in phase 11.  The
+read just after: K1's around the render of phase 4, the differentiable
+render and its backward (6b), the NRC training and render (8b), the
+production fwd+bwd of phase 12 and the trunc record (13b) — the JSON line
+gives the sum of the last five — K2's from the training of phase 8 and
+the NRC training and render (8b), summed, K3's from the ops entry point of
+phase 9 (no path of the renderer or trainer scans: the CDFs are built on
+the host, as in the JAX package), K4's from its probe entry point in phase
+11.  The
 kernels' JSON line gives each kernel's and its plain version's times at
 the main path's shapes: K1 on the render's camera batch (phase 5, which
 also prints the sum over the pass; phase 3 prints them at 65,536 rays), K2
@@ -313,9 +345,10 @@ def build_all():
     from mitsuba3_experiments_tpu_torch.intersect import bvh_cuda
     from mitsuba3_experiments_tpu_torch.models import fused_mlp_cuda
     from mitsuba3_experiments_tpu_torch.ops import gather_probe_cuda, prefix_sum_cuda
+    from mitsuba3_experiments_tpu_torch.scene import native
 
     libs = [bvh_cuda.LIBRARY, fused_mlp_cuda.LIBRARY, prefix_sum_cuda.LIBRARY,
-            gather_probe_cuda.LIBRARY]
+            gather_probe_cuda.LIBRARY, native.LIBRARY]
     t0 = time.perf_counter()
 
     def build(lib):
@@ -324,13 +357,15 @@ def build_all():
 
     with ThreadPoolExecutor(len(libs)) as pool:
         built = list(pool.map(build, libs))
-    print(f"[build] {len(libs)} kernels in {time.perf_counter() - t0:.2f} s")
-    for so, dt in built:
+    print(f"[build] {len(libs) - 1} kernels and the host library in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for so, dt in built[:-1]:
         print(f"[build] {so}: {dt:.2f} s")
         with open(so + ".log") as f:
             for line in f:
                 if "registers" in line or "spill" in line or "Compiling entry" in line:
                     print(f"[build] {line.strip()}")
+    print(f"[build] host library (g++, native/*.cpp) {built[-1][0]}: {built[-1][1]:.2f} s")
     for lib in libs:
         lib.load()
 
@@ -933,6 +968,315 @@ def phase_card_vs_cpu_replay(device):
               f"replayed gradient of {k} differs between card and CPU")
 
 
+def pass0_ms(made, reps=5):
+    """K1 alone (no overflow check) on each launch `made` of a pass: device
+    ms of each, as `device_ms` gives it."""
+    from mitsuba3_experiments_tpu_torch.intersect import bvh_cuda
+
+    out = []
+    for args, kw, _ in made:
+        def launch(args=args, kw=kw):
+            bvh_cuda._launch(*args, **kw)
+
+        launch()
+        out.append(device_ms(launch, reps))
+    return out
+
+
+def k1_least_ms(n, rows, leaf, distinct):
+    """K1's least time on a closest-hit batch of n rays whose plain
+    traversal fetched `rows` rows (`leaf` of them leaf rows, `distinct`
+    distinct): each distinct row read once plus the rays in and the hits
+    out, or its float operations; returns (ms, "bytes" or "operations",
+    bytes, operations)."""
+    nbytes = distinct * ROW_BYTES + n * (12 + 12 + 4 + 1 + 16)
+    ops = (rows - leaf) * K1_OPS_INTERNAL_ROW + leaf * K1_OPS_LEAF_ROW
+    bound = max(nbytes / HBM_BYTES_S, ops / F32_OPS_S) * 1e3
+    return bound, ("bytes" if nbytes / HBM_BYTES_S >= ops / F32_OPS_S else "operations"), \
+        nbytes, ops
+
+
+def phase_trees(sbvh_scene, sbvh_made, sbvh_rows, scene_dict, integrator, card):
+    """Phase 5b: the stand-in built with object splits only, against the
+    spatial-split tree (`sbvh_rows`: phase 5's plain row counts of its
+    camera batch, (rows, leaf rows, distinct rows)): build seconds, K1 held
+    against plain on the object-split tree's camera batch, rows fetched per
+    camera ray and the bound from the distinct rows each tree's camera batch
+    reaches, and K1's device time on the camera batch and summed over the
+    pass's launches, timed in turns (spatial, object, object, spatial).
+    Returns (the turns' times, K1's max abs error on the camera batch)."""
+    import torch
+
+    from mitsuba3_experiments_tpu_torch.intersect import bvh_torch
+    from mitsuba3_experiments_tpu_torch.scene import load_dict
+    from mitsuba3_experiments_tpu_torch.scene.bvh8 import BVHLayout
+
+    t0 = time.perf_counter()
+    obj_scene, _ = load_dict(scene_dict, bvh_layout=BVHLayout(sbvh=False),
+                             device=sbvh_scene.device)
+    print(f"[trees] object-split stand-in: {obj_scene.bvh.unified.shape[0]} BVH rows, "
+          f"{int((obj_scene.bvh.leaf_face >= 0).sum())} leaf slots, build "
+          f"{time.perf_counter() - t0:.2f} s")
+    obj_made = render_queries(obj_scene, integrator)
+    rows0, leaf0 = bvh_torch.rows, bvh_torch.leaf_rows
+    args, kw, out_k = obj_made[0]
+    out_p = bvh_torch.traverse_plain(*args, any_hit=False, layout=kw["layout"])
+    torch.cuda.synchronize()
+    err = hold("object-split camera batch", out_k, out_p, False, int(args[5].sum()))
+    obj_rows = (bvh_torch.rows - rows0, bvh_torch.leaf_rows - leaf0, bvh_torch.last_distinct_rows)
+    trees = {"sbvh": (sbvh_scene, sbvh_made), "object": (obj_scene, obj_made)}
+    for (name, (sc, made)), (rows, leaf, distinct) in zip(trees.items(), (sbvh_rows, obj_rows)):
+        n = made[0][0][2].shape[0]
+        bound, by, _, _ = k1_least_ms(n, rows, leaf, distinct)
+        print(f"[trees] {name}: camera batch of {n} rays fetched {rows} rows ({rows / n:.3f} per "
+              f"ray, {leaf} leaf), {distinct} distinct of {sc.bvh.unified.shape[0]}: bound "
+              f"{bound:.4f} ms by {by}; the pass made {len(made)} launches")
+    turns = {"sbvh": [], "object": []}
+    for name in ("sbvh", "object", "object", "sbvh"):
+        per = pass0_ms(trees[name][1])
+        turns[name].append((per[0], sum(per)))
+        print(f"[trees] {name}: K1 device time, camera batch {per[0]:.4f} ms, pass-0 sum of "
+              f"{len(per)} launches {sum(per):.4f} ms ({card})")
+    del obj_made, trees, obj_scene
+    return turns, err
+
+
+def phase_diff_render(dev, card):
+    """Phase 6b: the differentiable lockstep render on the 32x32 Cornell box
+    with a sphere (spp 4, depth 4): the gradients of an MSE with respect to
+    the base colours and emitter radiances on the card against the CPU's
+    (rtol 1e-3 / atol 1e-4 max|g|), and against the card's replay
+    (replay_render_grad, same seed; rtol 5e-3 / atol 5e-4 max|g|, the JAX
+    package's replay-against-AD tolerance); returns the K1 launches of the
+    card's render and backward."""
+    import torch
+
+    from mitsuba3_experiments_tpu_torch.integrators import (
+        PathIntegrator, render, replay_render_grad)
+    from mitsuba3_experiments_tpu_torch.scene import params
+
+    spp, depth = 4, 4
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        scene = small_nerad_scene(d)
+        with torch.no_grad():
+            target = render(scene, PathIntegrator(max_depth=depth), seed=9, spp=spp)
+        p = {k: params.traverse(scene)[k].detach().clone().requires_grad_(True)
+             for k in DIFF_KEYS}
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            reset_counts()
+        t0 = time.perf_counter()
+        img = render(params.update(scene, p), PathIntegrator(max_depth=depth, differentiable=True),
+                     seed=5, spp=spp)
+        ((img - target) ** 2).sum().backward()
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            counts = read_counts()
+            print(f"[diff render] 32x32 spp {spp} depth {depth} on the card: render + backward "
+                  f"{time.perf_counter() - t0:.3f} s, counts {counts} ({card})")
+            check(counts["k1"] > 0 and counts["plain_traverse"] == 0,
+                  "the differentiable render did not run its queries on K1 alone")
+            w, h = scene.camera.resolution
+            rep = replay_render_grad(scene, {k: params.traverse(scene)[k] for k in DIFF_KEYS},
+                                     params.update, target, 5, 0, w * h * spp, spp=spp,
+                                     max_depth=depth, rr_depth=4)
+        out[d.type] = {k: p[k].grad.cpu().numpy() for k in DIFF_KEYS}
+    for k in DIFF_KEYS:
+        gc, gh, gr = out["cuda"][k], out["cpu"][k], rep[k].cpu().numpy()
+        scale = float(np.abs(gh).max())
+        worst = float((np.abs(gc - gh) - 1e-3 * np.abs(gh)).max())
+        worst_r = float((np.abs(gr - gc) - 5e-3 * np.abs(gc)).max())
+        print(f"[diff render] d loss / d {k}: max |g| {scale:.6e}; card vs cpu largest |diff| - "
+              f"1e-3 |cpu| {worst:.3e} (atol {1e-4 * scale:.3e}); replay vs AD on the card "
+              f"largest |diff| - 5e-3 |AD| {worst_r:.3e} (atol {5e-4 * scale:.3e})")
+        check(scale > 0 and bool(np.isfinite(gc).all()), f"no finite gradient of {k}")
+        check(bool(np.allclose(gc, gh, rtol=1e-3, atol=1e-4 * scale)),
+              f"the card's AD gradient of {k} differs from the CPU's")
+        check(bool(np.allclose(gr, gc, rtol=5e-3, atol=5e-4 * float(np.abs(gc).max()))),
+              f"the card's replay gradient of {k} differs from its AD gradient")
+    return counts["k1"]
+
+
+# per-chunk maxima of path length are extreme-value statistics: at depth 16
+# every chunk of 64 or more of the stand-in's camera rays holds a path of
+# 9 or more bounces, so none falls to a shorter depth class; at depth 32
+# chunks of 64 often end by 16.  Each chunk's replay costs ~1 s of host
+# time at this depth, so the frame is kept to 9 chunks.
+TRUNC_RES = (32, 18)
+TRUNC_DEPTH = 32
+TRUNC_CHUNK = 64
+
+
+def phase_trunc(scene, card):
+    """Phase 13b: replay_grads(mode="trunc") on a small stand-in frame (the
+    stand-in's camera at 32x18, spp 1, depth 32, chunks of 64 rows), where
+    at least one chunk's paths end by half the depth: gradients finite and
+    nonzero, timed once.  'trunc' is the full replay (replay_radiance leaves
+    a chunk's depth loop once no row is live), which the CPU tests hold
+    against the JAX package's truncated replay.  Returns the record's K1
+    launches."""
+    import dataclasses
+
+    import torch
+
+    from mitsuba3_experiments_tpu_torch.integrators import (
+        path_lengths, record_full_pipelined, render_persistent, replay_grads)
+    from mitsuba3_experiments_tpu_torch.scene import params
+
+    small = dataclasses.replace(scene, camera=dataclasses.replace(scene.camera,
+                                                                  resolution=TRUNC_RES))
+    w, h = TRUNC_RES
+    n = w * h
+    pad = -(-n // TRUNC_CHUNK) * TRUNC_CHUNK
+    target = render_persistent(small, seed=1, spp=1, max_depth=TRUNC_DEPTH, rr_depth=4)
+    torch.cuda.synchronize()
+    reset_counts()
+    rec = record_full_pipelined(small, 0, n, spp=1, max_depth=TRUNC_DEPTH, rr_depth=4,
+                                pad_to=pad)
+    torch.cuda.synchronize()
+    launches = read_counts()["k1"]
+    lens = path_lengths(rec).reshape(-1, TRUNC_CHUNK).amax(dim=1).tolist()
+    short = sum(1 for x in lens if x <= TRUNC_DEPTH // 2)
+    print(f"[trunc] {w}x{h} spp 1 depth {TRUNC_DEPTH}: {len(lens)} chunks of {TRUNC_CHUNK}, "
+          f"longest path per chunk {lens}; {short} chunks truncated")
+    check(short > 0, "no chunk of the trunc replay is truncated")
+    diff = {k: params.traverse(small)[k] for k in DIFF_KEYS}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads = replay_grads(small, diff, params.update, target, 0, rec, n, chunk=TRUNC_CHUNK,
+                         spp=1, max_depth=TRUNC_DEPTH, rr_depth=4, mode="trunc")
+    torch.cuda.synchronize()
+    print(f"[trunc] replay_grads(mode='trunc'): {time.perf_counter() - t0:.3f} s ({card})")
+    for k in DIFF_KEYS:
+        g = grads[k]
+        scale = float(g.abs().max())
+        print(f"[trunc] d loss / d {k}: max |g| {scale:.6e}")
+        check(scale > 0 and bool(torch.isfinite(g).all()), f"trunc: no finite gradient of {k}")
+    return launches
+
+
+NRC_BATCH = 16_384
+NRC_STEPS = 24
+
+
+def phase_nrc(scene, card, steps=NRC_STEPS):
+    """Phase 8b: NRCTrainer(FieldConfig(fused=True)) on the stand-in, batch
+    16,384: every loss finite, K1 and K2 launched, no plain traversal and no
+    plain MLP forward outside the backward's recompute; every K1 launch of
+    the first step held against the plain traversal on the same tensors, as
+    in phase 3; K2 held against apply_mlp on the rows of the first step's
+    cache queries (at least 0.99 of the rows within 1e-5) and timed there;
+    then the stand-in rendered at 1280x720 spp 1 by NRCIntegrator with the
+    trained cache, and again with the plain MLP (FieldConfig(fused=False))
+    in the same cache: the images allclose within rtol 2e-2 / atol 2e-3
+    (K2's bf16 rounding, as tests/test_torch_cuda.py holds them).  Returns
+    (training counts, render counts, K2's rows and device ms per query,
+    K1's and K2's max abs errors)."""
+    import dataclasses
+
+    import torch
+
+    from mitsuba3_experiments_tpu_torch.integrators import NRCIntegrator, NRCTrainer, render
+    from mitsuba3_experiments_tpu_torch.intersect import bvh_torch
+    from mitsuba3_experiments_tpu_torch.models import (
+        FieldConfig, apply_mlp, fused_mlp, fused_mlp_cuda)
+
+    cfg = FieldConfig(fused=True)
+    trainer = NRCTrainer(field_cfg=cfg, batch_size=NRC_BATCH)
+    init, step = trainer.make_train_step(scene)
+    field, opt = init(torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    reset_counts()
+    launch = fused_mlp_cuda.fused_mlp_cuda
+    queries = []
+
+    def recording(params_flat, x, *args):
+        queries.append((x.detach(), args))
+        return launch(params_flat, x, *args)
+
+    losses, step_s, made = [], [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        if i == 0:   # the first step's K1 and K2 launches kept for the checks
+            fused_mlp_cuda.fused_mlp_cuda = recording
+            try:
+                made = k1_launches(lambda: losses.append(step(field, opt, i)))
+            finally:
+                fused_mlp_cuda.fused_mlp_cuda = launch
+        else:
+            losses.append(step(field, opt, i))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    train = read_counts()
+    losses = torch.stack(losses).cpu().numpy()
+    print(f"[nrc] {steps} steps of batch {NRC_BATCH}: median step {np.median(step_s[5:]):.4f} s, "
+          f"first {step_s[0]:.4f} s; losses first {losses[:3].tolist()} last "
+          f"{losses[-3:].tolist()}; counts {train} ({card})")
+    check(bool(np.isfinite(losses).all()), "an NRC loss is not finite")
+    check(train["k1"] > 0 and train["k2"] > 0, "NRC training did not launch K1 and K2")
+    check(train["plain_traverse"] == 0, "NRC training ran the plain traversal")
+    check(train["plain_mlp"] == train["recomputes"],
+          "NRC training ran the plain MLP forward outside the backward's recompute")
+    err_k1, plain_s = 0.0, 0.0
+    for i, (args, kw, out_k) in enumerate(made):
+        t0 = time.perf_counter()
+        out_p = bvh_torch.traverse_plain(*args, any_hit=kw["any_hit"], layout=kw["layout"])
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        kind = "shadow" if kw["any_hit"] else "closest"
+        err_k1 = max(err_k1, hold(f"nrc step0 #{i} {kind}", out_k, out_p, kw["any_hit"],
+                                  int(args[5].sum())))
+    check(len(made) > 0, "the first NRC step made no K1 launch")
+    print(f"[nrc] the first step: {len(made)} K1 launches held against plain ({plain_s:.1f} s "
+          f"of plain), max abs err {err_k1:.3e}")
+    del made
+    # K2 on the cache-query rows of the first step, with the field as it is now
+    k2_rows, k2_dev, err_k2 = 0, 0.0, 0.0
+    flat = tuple(t.detach() for t in fused_mlp.mlp_params_flat(field.mlp))
+    with torch.no_grad():
+        for x, args in queries:
+            got = launch(flat, x, *args)
+            ref = apply_mlp([{"w": w, "b": b} for w, b in zip(flat[0::2], flat[1::2])], x)
+            torch.cuda.synchronize()
+            close = float(torch.isclose(got, ref, rtol=1e-5, atol=1e-5).all(dim=1).float().mean())
+            err = float((got - ref).abs().max())
+            err_k2 = max(err_k2, err)
+            k2_rows = x.shape[0]
+            k2_dev = device_ms(lambda: launch(flat, x, *args), 20)
+            print(f"[nrc] K2 on a cache query of {k2_rows} rows: rows equal to apply_mlp within "
+                  f"1e-5 {close:.6f}, max abs err {err:.3e}; device time {k2_dev:.4f} ms ({card})")
+            check(close >= 0.99, f"K2 on the NRC query rows: only {close:.6f} rows equal apply_mlp")
+    check(len(queries) == 2, f"an NRC step made {len(queries)} K2 launches, not 2")
+
+    w, h = scene.camera.resolution
+    integ = NRCIntegrator(max_depth=trainer.max_depth, spread_c=trainer.spread_c,
+                          cache=(field, trainer))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    img = render(scene, integ, spp=1)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    rend = read_counts()
+    img_np = img.cpu().numpy()
+    print(f"[nrc] render {w}x{h} spp 1 with the cache: {render_s:.3f} s, image mean "
+          f"{img_np.mean():.6f}, counts {rend} ({card})")
+    check(bool(np.isfinite(img_np).all()) and float(img_np.mean()) > 0.0,
+          "the NRC image is not finite or is black")
+    check(rend["k2"] > 0 and rend["plain_mlp"] == 0 and rend["plain_traverse"] == 0,
+          "the NRC render did not run on K1 and K2 alone")
+    plain = dataclasses.replace(trainer, field_cfg=dataclasses.replace(cfg, fused=False))
+    ref = render(scene, dataclasses.replace(integ, cache=(field, plain)), spp=1)
+    err = float((img - ref).abs().max())
+    close = float(torch.isclose(img, ref, rtol=1e-5, atol=1e-5).all(dim=-1).float().mean())
+    print(f"[nrc] the same render with the plain MLP: image mean {float(ref.mean()):.6f}, max abs "
+          f"diff {err:.3e}, pixels within 1e-5 {close:.6f}")
+    check(bool(torch.allclose(img, ref, rtol=2e-2, atol=2e-3)),
+          f"the NRC render on K2 differs from the plain MLP's (max abs diff {err:.3e})")
+    return train, rend, k2_rows, k2_dev, err_k1, err_k2
+
+
 def main() -> int:
     import torch
 
@@ -970,11 +1314,16 @@ def main() -> int:
         timing=False,
     )
 
+    standin = standin_dict(res=RES, spp=SPP)
     t0 = time.perf_counter()
-    scene, _ = load_dict(standin_dict(res=RES, spp=SPP), device=dev)
+    scene, _ = load_dict(standin, device=dev)
     build_s = time.perf_counter() - t0
+    refs = int((scene.bvh.leaf_face >= 0).sum())
     print(f"[standin] {scene.n_faces} triangles, {scene.bvh.unified.shape[0]} BVH rows "
-          f"({scene.bvh.unified.numel() * 4 / 1e6:.1f} MB), build {build_s:.2f} s")
+          f"({scene.bvh.unified.numel() * 4 / 1e6:.1f} MB), spatial-split build {build_s:.2f} s; "
+          f"{refs} leaf references, {refs - scene.n_faces} of them repeats")
+    check(scene.bvh.layout.sbvh and refs > scene.n_faces,
+          "the stand-in's tree has no repeated references: not a spatial-split build")
     err_b, _, _ = compare_kernel(
         "standin", scene,
         seeded_rays(2, flagship._ROOM_LO + 0.1, flagship._ROOM_HI - 0.1,
@@ -1028,16 +1377,9 @@ def main() -> int:
         print(f"[pass0 #{i} {kind}] plain {dt:.2f} s")
     # K1 alone on each launch of the pass, kernel only (the comparison above
     # made the overflow check): device time, 5 repeats
-    per_ms, by_kind = [], {}
-    for i, (args, kw, _) in enumerate(made):
+    per_ms, by_kind = pass0_ms(made), {}
+    for i, ((args, kw, _), ms) in enumerate(zip(made, per_ms)):
         kind = "camera" if i == 0 else ("shadow" if kw["any_hit"] else "bounce")
-
-        def launch(args=args, kw=kw):
-            bvh_cuda._launch(*args, **kw)
-
-        launch()
-        ms = device_ms(launch, 5)
-        per_ms.append(ms)
         by_kind[kind] = by_kind.get(kind, 0.0) + ms
         print(f"[pass0 #{i} {kind}] {args[2].shape[0]} rays, {int(args[5].sum())} active: "
               f"kernel {ms:.4f} ms ({card})")
@@ -1055,17 +1397,18 @@ def main() -> int:
           + ", ".join(f"{k} {v:.4f}" for k, v in by_kind.items()) + f") ({card})")
     # K1's least time on the camera batch: each distinct row it reaches read
     # once plus the rays in and the hits out, or its float operations
-    k1_bytes = cam_distinct * ROW_BYTES + n_main * (12 + 12 + 4 + 1 + 16)
-    k1_ops = (cam_rows - cam_leaf) * K1_OPS_INTERNAL_ROW + cam_leaf * K1_OPS_LEAF_ROW
-    k1_bound = max(k1_bytes / HBM_BYTES_S, k1_ops / F32_OPS_S) * 1e3
-    k1_by = "bytes" if k1_bytes / HBM_BYTES_S >= k1_ops / F32_OPS_S else "operations"
+    k1_bound, k1_by, k1_bytes, k1_ops = k1_least_ms(n_main, cam_rows, cam_leaf, cam_distinct)
     print(f"[pass0] camera batch fetched {cam_rows} rows ({cam_leaf} leaf, {cam_distinct} "
           f"distinct of {scene.bvh.unified.shape[0]}): bytes {k1_bytes / 1e6:.1f} MB = "
           f"{k1_bytes / HBM_BYTES_S * 1e3:.4f} ms, float32 operations {k1_ops / 1e9:.2f} G = "
           f"{k1_ops / F32_OPS_S * 1e3:.4f} ms: bound {k1_bound:.4f} ms by {k1_by}, kernel at "
           f"{k1_bound / k_main_ms:.4f} of it; every fetch from device memory would be "
           f"{cam_rows * ROW_BYTES / HBM_BYTES_S * 1e3:.4f} ms")
-    del made
+
+    # ---- phase 5b: the object-split tree against the spatial-split one ----
+    turns, err_e = phase_trees(scene, made, (cam_rows, cam_leaf, cam_distinct), standin,
+                               integrator, card)
+    del made, standin
 
     # ---- phase 6: small reference render, card vs CPU ----------------------
     small = PathIntegrator(max_depth=4)
@@ -1077,6 +1420,9 @@ def main() -> int:
           f"(rel {rel:.2e}), pixels within rtol 1e-3/atol 1e-4: {close:.4f}")
     check(rel < 1e-3, f"card and CPU image means differ by {rel:.2e}")
     check(close >= 0.99, f"only {close:.4f} of the pixels agree with the CPU render")
+
+    # ---- phase 6b: the differentiable render, card vs CPU and vs replay -----
+    k1_diff = phase_diff_render(dev, card)
 
     # ---- phase 7: K2 against plain on the field's real inputs -------------
     from mitsuba3_experiments_tpu_torch.models import FieldConfig, NeradTrainer, init_field
@@ -1094,6 +1440,10 @@ def main() -> int:
     err_trained, _, _, _ = phase_k2(dev, card, trained, cfg, "trained field", timing=False)
     err_k2 = max(err_k2, err_trained)
 
+    # ---- phase 8b: neural radiance caching on the stand-in -----------------
+    nrc_train, nrc_render, nrc_rows, nrc_k2_ms, err_f, err_nrc_k2 = phase_nrc(scene, card)
+    err_k2 = max(err_k2, err_nrc_k2)
+
     # ---- phase 9: K3's path, the ops entry point, against plain ------------
     k3_launches, err_k3, k3_ms, k3_plain_ms, k3_lib_ms, k3_bound, k3_dev = phase_k3(
         dev, card, NeradTrainer.make_area_dist(scene).pmf)
@@ -1110,20 +1460,36 @@ def main() -> int:
     # ---- phase 13: the depth-65 companion ----------------------------------
     fwd_bwd(scene, target, 1, DEEP, card, "fwd+bwd d65")
 
+    # ---- phase 13b: the truncated replay against the full one --------------
+    k1_trunc = phase_trunc(scene, card)
+
     # ---- phase 14: record + replay, card against CPU -----------------------
     phase_card_vs_cpu_replay(dev)
 
     k2_bound, k2_by = k2_least_ms(FIELD_ROWS, K2_SIZES)
     print(f"[K2] {FIELD_ROWS} rows: kernel at {k2_bound / k2_ms:.4f} of the bound, device time at "
           f"{k2_bound / k2_dev:.4f} of it")
+    for name, runs in turns.items():
+        print(f"[trees] {name} in turns: camera batch "
+              + ", ".join(f"{c:.4f}" for c, _ in runs) + " ms; pass-0 sum "
+              + ", ".join(f"{p:.4f}" for _, p in runs) + f" ms ({card})")
+    print(f"[nrc] K2 at {nrc_rows} query rows: device time {nrc_k2_ms:.4f} ms, bound "
+          f"{k2_least_ms(nrc_rows, K2_SIZES)[0]:.4f} ms; launches: training {nrc_train['k2']}, "
+          f"render {nrc_render['k2']}")
+    k1_launches = prod["k1"] + k1_diff + k1_trunc + nrc_train["k1"] + nrc_render["k1"]
+    k2_launches = train["k2"] + nrc_train["k2"] + nrc_render["k2"]
+    print(f"[smoke] K1 launches: fwd+bwd d8 {prod['k1']}, differentiable render {k1_diff}, "
+          f"trunc record {k1_trunc}, NRC training {nrc_train['k1']}, NRC render "
+          f"{nrc_render['k1']}; K2 launches: nerad training {train['k2']}, NRC training "
+          f"{nrc_train['k2']}, NRC render {nrc_render['k2']}")
     print(f"[smoke] total {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": [
         {"name": "bvh8_traverse", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-         "launches": prod["k1"], "max_abs_err": max(err_a, err_b, err_c, err_d), "ms": k_main_ms,
-         "plain_ms": p_main_ms, "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
-         "device_ms": per_ms[0]},
+         "launches": k1_launches, "max_abs_err": max(err_a, err_b, err_c, err_d, err_e, err_f),
+         "ms": k_main_ms, "plain_ms": p_main_ms, "bound_ms": k1_bound, "bound_by": k1_by,
+         "library_ms": None, "device_ms": per_ms[0]},
         {"name": "fused_mlp", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
-         "launches": train["k2"], "max_abs_err": err_k2, "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "launches": k2_launches, "max_abs_err": err_k2, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None, "device_ms": k2_dev},
         {"name": "prefix_sum", "route": "cuda", "source": K3_SOURCE, "replaces": K3_REPLACES,
          "launches": k3_launches, "max_abs_err": err_k3, "ms": k3_ms, "plain_ms": k3_plain_ms,

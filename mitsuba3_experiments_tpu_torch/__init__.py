@@ -1,17 +1,21 @@
 """mitsuba3_experiments_tpu_torch — the PyTorch + CUDA port of the path tracer.
 
-The forward path-MIS render and the neural-radiosity training and render of
-``mitsuba3_experiments_tpu`` rebuilt on PyTorch tensors, with the ray
-queries, the field's MLP and the scans served by hand-written CUDA kernels
-on the GPU.  Module names follow the JAX package, so each counterpart is
+The path-MIS render and its gradients, neural radiosity and neural
+radiance caching of ``mitsuba3_experiments_tpu`` rebuilt on PyTorch
+tensors, with the ray queries, the field's MLP and the scans served by
+hand-written CUDA kernels on the GPU.  Module names follow the JAX package, so each counterpart is
 easy to find:
 
   core/        math, warps, counter-based RNG, records, distributions, SH
-  scene/       dict scene compiler, shapes, numpy SAH + 8-wide BVH build
+  scene/       dict scene compiler, shapes, OBJ/XML I/O, the C++ host
+               library's SAH/SBVH builds (native.py) + 8-wide BVH tables
   intersect/   8-wide BVH traversal: plain torch lockstep + CUDA kernel
   render/      sensor, film, BSDFs, emitters, textures
-  integrators/ path tracer (NEE + MIS + Russian roulette), render driver,
+  integrators/ path tracer (NEE + MIS + Russian roulette; forward and
+               differentiable), production wavefront, record+replay
+               gradients, neural radiance caching, render driver,
                integrator registry
+  utils/       image I/O
   ops/         reductions, scans (plain + CUDA kernel), compaction, dispatch
   models/      MLP, hash-grid encoding, fused MLP (CUDA kernel), neural
                radiosity

@@ -5,6 +5,7 @@ from .common import (  # noqa: F401
     render,
     render_pass,
 )
+from .nrc import NRCIntegrator, NRCTrainer  # noqa: F401
 from .path import PathIntegrator  # noqa: F401
 from .persistent import ray_pixel, ray_positions, render_persistent, splat_deferred  # noqa: F401
 from .pipelined import record_full_pipelined, render_pipelined  # noqa: F401

@@ -4,6 +4,8 @@
 An integrator is a config dataclass with a `sample(scene, sampler, ray,
 active) -> (L, valid, sampler)` method; `render` loops passes (and optional
 fixed-size lane chunks) on the host and splats every pass into one film.
+The film's in-place splat carries the gradient of a differentiable
+integrator's radiance to the developed image.
 """
 from __future__ import annotations
 
@@ -38,19 +40,21 @@ def make_integrator(props: dict):
 
 
 def mis_weight(pdf_a, pdf_b):
-    """Power heuristic (beta=2), 0 where not finite."""
+    """Power heuristic (beta=2), 0 where not finite; carries no gradient,
+    as in the JAX package."""
     a2 = pdf_a * pdf_a
     w = m.safe_div(a2, a2 + pdf_b * pdf_b)
-    return torch.where(torch.isfinite(w), w, 0.0)
+    return torch.where(torch.isfinite(w), w, 0.0).detach()
 
 
-@torch.no_grad()
 def render_pass(scene: Scene, integrator, seed, pass_idx, film,
                 spp_per_pass: int = 1, rfilter: str = "box",
                 chunk: int | None = None, lane_offset=0):
     """One wavefront: `chunk` camera rays starting at `lane_offset` (default:
     the whole W*H*spp_per_pass wavefront) -> film splats (in place; the film
-    is also returned)."""
+    is also returned).  Autograd records the pass only where the
+    integrator's radiance carries a gradient (a differentiable integrator
+    on a scene whose tables require one)."""
     w, h = scene.camera.resolution
     n = w * h * spp_per_pass
     if chunk is None:
@@ -72,7 +76,6 @@ def render_pass(scene: Scene, integrator, seed, pass_idx, film,
     return filmlib.put(film, pos, L, active=in_range, rfilter=rfilter)
 
 
-@torch.no_grad()
 def render(scene: Scene, integrator, seed: int = 0, spp: int = 16,
            rfilter: str | None = None, spp_per_pass: int | None = None,
            chunk: int | None = None):

@@ -274,17 +274,20 @@ def replay_grads(scene: Scene, params: dict, update_fn, target, seed, rec: PathR
                  rfilter: str = "box", mode: str = "auto", film=None):
     """The production fwd+bwd replay.  mode 'auto' takes 'sorted' when
     max_depth >= 16 (deep paths: most die early, so sorted chunks loop
-    short), else 'full'.  `film` is passed on to the sorted mode.  The JAX
-    package's 'trunc' mode is not ported."""
+    short), else 'full'.  'trunc' is 'full': the JAX package cuts each
+    chunk's depth loop to the class of its longest path, and the port's
+    replay_radiance already leaves a chunk's loop once no row is active, so
+    the cut changes neither the result nor the steps run.  `film` is passed
+    on to the sorted mode."""
     if mode == "auto":
         mode = "sorted" if max_depth >= 16 else "full"
     kw = dict(chunk=chunk, spp=spp, max_depth=max_depth, rr_depth=rr_depth, rfilter=rfilter)
-    if mode == "full":
+    if mode in ("full", "trunc"):
         return replay_grads_full(scene, params, update_fn, target, seed, rec, n_rays, **kw)
     if mode == "sorted":
         return replay_grads_sorted(scene, params, update_fn, target, seed, rec, n_rays,
                                    film=film, **kw)
-    raise ValueError(f"replay mode {mode!r}: the port has 'auto', 'full' and 'sorted'")
+    raise ValueError(f"replay mode {mode!r}: the port has 'auto', 'full', 'sorted' and 'trunc'")
 
 
 def replay_render_grad(scene: Scene, params: dict, update_fn, target, seed, idx0: int, n: int,

@@ -3,11 +3,9 @@
 Counterpart of ``mitsuba3_experiments_tpu.scene.build``.  The compile is host
 numpy work, carried over unchanged so that both packages produce the same
 tables byte for byte; only the edges differ: every table becomes a torch
-tensor on the `device` given to `load_dict`.
-
-Not ported yet: shapes and images read from files (`obj`/`ply` shapes,
-`bitmap` textures and `envmap`s given by `filename`).  Bitmaps and envmaps
-given as in-memory `data` arrays are supported.
+tensor on the `device` given to `load_dict`.  Shapes and images may come
+from files: `obj`/`ply` shapes through scene/obj.py, `bitmap` textures and
+`envmap`s given by `filename` through utils/image.py.
 """
 from __future__ import annotations
 
@@ -19,8 +17,10 @@ import torch
 from .. import resolve_device
 from ..core.distributions import DiscreteDistribution, DiscreteDistribution2D
 from ..core.records import BSDFFlags
+from ..utils.image import read_image
 from . import mesh as meshlib
 from .bvh import build_bvh
+from .obj import load_obj
 from .types import (
     BSDFKind,
     Camera,
@@ -77,13 +77,11 @@ def _ior(value, default=1.5046):
     return float(value)
 
 
-def _image_data(spec, what):
-    if "data" not in spec:
-        raise ValueError(
-            f"{what} from a file is not supported by this package yet; "
-            "pass the image as a 'data' array"
-        )
-    return np.asarray(spec["data"], np.float32)
+def _image_data(spec):
+    """An image given as a `data` array or read from `filename`."""
+    if "data" in spec:
+        return np.asarray(spec["data"], np.float32)
+    return read_image(spec["filename"]).astype(np.float32)
 
 
 class _MaterialBuilder:
@@ -111,7 +109,7 @@ class _MaterialBuilder:
     def _texture(self, spec) -> int:
         """Register a bitmap/checkerboard texture; returns the atlas index."""
         if isinstance(spec, dict) and spec.get("type") == "bitmap":
-            self.textures.append(_image_data(spec, "a bitmap texture"))
+            self.textures.append(_image_data(spec))
             return len(self.textures) - 1
         if isinstance(spec, dict) and spec.get("type") == "checkerboard":
             c0 = _rgb(spec.get("color0"), (0.4, 0.4, 0.4))
@@ -303,6 +301,8 @@ def _build_shape_mesh(d) -> meshlib.HostMesh:
             np.asarray(d["uvs"], np.float32) if "uvs" in d else None,
             flat=d.get("normals") is None,
         )
+    elif t in ("obj", "ply"):
+        m = load_obj(d["filename"], face_normals=bool(d.get("face_normals", False)))
     else:
         raise ValueError(f"unsupported shape type {t}")
     tw = d.get("to_world")
@@ -370,7 +370,7 @@ def load_dict(scene_dict: dict, bvh_layout=None, device=None) -> tuple[Scene, di
             meta["env_radiance"] = _rgb(val.get("radiance"), (1, 1, 1))
         elif t == "envmap":
             meta["env_radiance"] = _rgb(val.get("scale", 1.0), (1, 1, 1))
-            meta["env_map"] = _image_data(val, "an envmap")
+            meta["env_map"] = _image_data(val)
         # unknown auxiliary entries are skipped
 
     if camera is None:

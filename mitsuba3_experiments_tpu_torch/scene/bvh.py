@@ -1,10 +1,15 @@
-"""BVH construction: vectorized top-down binned SAH (host side, numpy).
+"""BVH construction: binned SAH, object-split or spatial-split (SBVH).
 
-The numpy builder of ``mitsuba3_experiments_tpu.scene.bvh``, carried over
-unchanged: a classic binned SAH (16 bins, surface-area heuristic with leaf
-cost) vectorized per BFS level — every node at a level is binned, swept and
-partitioned with bincount/segment reductions, O(F log F) in total.  The
-binary tree is then collapsed into the 8-wide packed rows of scene/bvh8.py.
+As in ``mitsuba3_experiments_tpu.scene.bvh``: the binary tree comes from the
+C++ builders (scene/native.py, compiled from native/*.cpp) — the
+spatial-split build when the layout asks for it (the default), else the
+object-split build — and is collapsed into the 8-wide packed rows of
+scene/bvh8.py.  A spatial split may put one triangle into several leaves,
+so the leaf tables hold references: a face id may repeat.
+
+`_build_bvh_numpy` is the JAX package's vectorized numpy binned SAH (16
+bins, surface-area heuristic with leaf cost, per BFS level), kept as the
+plain reference of the object-split builder.
 """
 from __future__ import annotations
 
@@ -30,12 +35,14 @@ def build_bvh(
     """Build the packed 8-wide BVH (types.BVH) with its tables on `device`
     (None: the card).
 
-    Pipeline: binary binned SAH (numpy) -> 8-wide collapse + row packing
-    (scene/bvh8.py).  `layout` (bvh8.BVHLayout) selects width/leaf_cap/
-    collapse; None = bvh8.DEFAULT_LAYOUT.  leaf_size defaults to (and must
-    not exceed) layout.leaf_cap.
+    Pipeline: binary binned SAH in C++ (spatial splits with
+    layout.sbvh_alpha when layout.sbvh, else object splits) -> 8-wide
+    collapse + row packing (scene/bvh8.py).  `layout` (bvh8.BVHLayout)
+    selects width/leaf_cap/collapse/SBVH; None = bvh8.DEFAULT_LAYOUT.
+    leaf_size defaults to (and must not exceed) layout.leaf_cap.
     """
     from .bvh8 import DEFAULT_LAYOUT, collapse_to_wide
+    from .native import build_bvh_native, build_sbvh_native
 
     lay = layout if layout is not None else DEFAULT_LAYOUT
     if leaf_size is None:
@@ -43,9 +50,11 @@ def build_bvh(
     if leaf_size > lay.leaf_cap:
         raise ValueError(f"leaf_size {leaf_size} > leaf_cap {lay.leaf_cap}")
 
-    lo, hi, left, right, first, count, order = _build_bvh_numpy(
-        vertices, faces, leaf_size
-    )
+    if lay.sbvh:
+        tree = build_sbvh_native(vertices, faces, leaf_size, alpha=lay.sbvh_alpha)
+    else:
+        tree = build_bvh_native(vertices, faces, leaf_size)
+    lo, hi, left, right, first, count, order, _ = tree
     v = np.asarray(vertices, np.float32)
     f = np.asarray(faces, np.int64)
     tv_flat = v[f[order]].reshape(len(order), 9).astype(np.float32)

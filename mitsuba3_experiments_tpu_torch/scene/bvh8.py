@@ -34,10 +34,10 @@ class BVHLayout:
       leaf_cap   triangles per packed leaf row (8).
       collapse   binary->wide expansion order: "first" (default) or "area"
                  (SA-greedy; deeper tree, stack need 96).
-      sbvh       spatial-split build.  It needs the native builder, which
-                 the port does not have yet: like the JAX package without
-                 its native library, the build takes the numpy object-split
-                 path whatever this says.
+      sbvh       spatial-split build (native/sbvh_builder.cpp): a triangle
+                 that straddles a split is referenced from both sides, so
+                 leaves may repeat a face; False: object splits only
+                 (native/bvh_builder.cpp).
       sbvh_alpha child-overlap threshold for spatial splits.
       stack_depth traversal stack capacity; None = auto (80 for the
                  default 8-wide "first" tree, 96 for "area", else

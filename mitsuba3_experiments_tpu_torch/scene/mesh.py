@@ -48,6 +48,17 @@ def face_areas(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:
     return (0.5 * np.linalg.norm(n, axis=-1)).astype(np.float32)
 
 
+def smooth_vertex_normals(vertices: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """Area-weighted vertex normals (for OBJ meshes without vn records)."""
+    tri = vertices[faces]
+    fn = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])  # area-weighted
+    vn = np.zeros_like(vertices)
+    for k in range(3):
+        np.add.at(vn, faces[:, k], fn)
+    ln = np.linalg.norm(vn, axis=-1, keepdims=True)
+    return (vn / np.maximum(ln, 1e-20)).astype(np.float32)
+
+
 def rectangle(subdiv: int = 1) -> HostMesh:
     """Mitsuba `rectangle`: [-1,1]^2 in the XY plane, z=0, normal +Z.
 

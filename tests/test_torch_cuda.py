@@ -1,4 +1,5 @@
-"""The CUDA traversal kernel against its plain torch version, on the card.
+"""The CUDA kernels against their plain torch versions, and the paths that
+run them, on the card.
 
 Marked `cuda`: it needs an NVIDIA card and nvcc, decides so when it runs,
 and skips elsewhere.  Run it on the card with
@@ -569,3 +570,78 @@ def test_record_replay_card_matches_cpu(card, mode):
     for k in gh:
         assert np.abs(gh[k]).max() > 0 and np.isfinite(gc[k]).all()
         np.testing.assert_allclose(gc[k], gh[k], rtol=1e-3, atol=1e-4 * np.abs(gh[k]).max())
+
+
+# ---------- the spatial-split tree, the differentiable render, NRC ----------
+
+def test_kernel_matches_plain_on_the_spatial_split_standin(scene):
+    """The stand-in's default tree repeats the faces that straddle spatial
+    splits; K1 equals the plain traversal on it."""
+    b = scene.bvh
+    assert b.layout.sbvh and int((b.leaf_face >= 0).sum()) > scene.n_faces
+    args = (b.unified, b.nodes.shape[0], *_rays(65_536, 11))
+    for any_hit in (False, True):
+        tk, fk, uk, vk = bvh_cuda.traverse_cuda(*args, any_hit=any_hit, layout=b.layout)
+        tp, fp, up, vp = bvh_torch.traverse_plain(*args, any_hit, b.layout)
+        if any_hit:
+            assert torch.equal(fk >= 0, fp >= 0)
+            continue
+        assert torch.equal(fk, fp)
+        for a, c in ((tk, tp), (uk, up), (vk, vp)):
+            torch.testing.assert_close(a, c, rtol=1e-6, atol=1e-7)
+
+
+def test_differentiable_render_card_matches_cpu(card):
+    """AD through PathIntegrator(differentiable=True) on the card (K1, run
+    again in the backward) equals the CPU's within rtol 1e-3 / atol 1e-4
+    max|g|."""
+    from mitsuba3_experiments_tpu_torch.integrators import PathIntegrator, render
+    from mitsuba3_experiments_tpu_torch.scene import params
+
+    keys = ("materials.base_color", "emitters.radiance")
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        scene = _replay_scene(dev)
+        with torch.no_grad():
+            target = render(scene, PathIntegrator(max_depth=4), seed=9, spp=2)
+        p = {k: params.traverse(scene)[k].detach().clone().requires_grad_(True) for k in keys}
+        launches = bvh_cuda.launches
+        img = render(params.update(scene, p), PathIntegrator(max_depth=4, differentiable=True),
+                     seed=5, spp=2)
+        forward = bvh_cuda.launches - launches
+        ((img - target) ** 2).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert forward > 0 and bvh_cuda.launches - launches == 2 * forward - 1
+        out[dev.type] = {k: p[k].grad.cpu().numpy() for k in keys}
+    for k in keys:
+        gc, gh = out["cuda"][k], out["cpu"][k]
+        assert np.abs(gh).max() > 0 and np.isfinite(gc).all()
+        np.testing.assert_allclose(gc, gh, rtol=1e-3, atol=1e-4 * np.abs(gh).max())
+
+
+def test_nrc_fused_launches_kernel(card):
+    """NRCTrainer and NRCIntegrator with FieldConfig(fused=True) run their
+    cache lookups on K2; the fused render agrees with the plain one within
+    K2's bf16 rounding."""
+    from mitsuba3_experiments_tpu_torch.integrators import NRCIntegrator, NRCTrainer, render
+    from mitsuba3_experiments_tpu_torch.models import (
+        FieldConfig, HashGridConfig, fused_mlp_cuda, mlp)
+
+    scene = _replay_scene(card)
+    cfg = FieldConfig(grid=HashGridConfig(n_levels=4, log2_table_size=12, base_resolution=4,
+                                          finest_resolution=64), width=32, depth=3, fused=True,
+                      fused_tile=128)
+    trainer = NRCTrainer(field_cfg=cfg, batch_size=1024, spread_c=1e-6, max_depth=3,
+                         train_depth=8, train_spread_mult=1e5)
+    launches = fused_mlp_cuda.launches
+    field, losses = trainer.train(scene, n_iters=5)
+    assert fused_mlp_cuda.launches == launches + 2 * 5 and np.isfinite(losses).all()
+    integ = NRCIntegrator(max_depth=3, spread_c=1e-6, cache=(field, trainer))
+    launches, calls = fused_mlp_cuda.launches, mlp.calls
+    img = render(scene, integ, spp=2)
+    torch.cuda.synchronize()
+    assert fused_mlp_cuda.launches == launches + 1 and mlp.calls == calls
+    plain = dataclasses.replace(trainer, field_cfg=dataclasses.replace(cfg, fused=False))
+    ref = render(scene, dataclasses.replace(integ, cache=(field, plain)), spp=2)
+    torch.testing.assert_close(img, ref, rtol=2e-2, atol=2e-3)

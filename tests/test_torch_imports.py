@@ -32,7 +32,8 @@ def test_every_module_imports_without_jax():
     assert len(mods) >= 25, mods
     for new in ("integrators.persistent", "integrators.pipelined", "integrators.replay",
                 "integrators.wavefront", "scene.params", "ops.gather_probe",
-                "ops.gather_probe_cuda"):
+                "ops.gather_probe_cuda", "integrators.nrc", "scene.native", "scene.obj",
+                "scene.xml", "scene.serialize", "utils.image"):
         assert f"{port.__name__}.{new}" in mods, new
     code = (
         "import importlib, sys\n"
@@ -59,6 +60,8 @@ def test_kernel_wrapper_imports_without_nvcc_or_triton():
         "assert shutil.which('nvcc') is None\n"
         "for w in (bvh_cuda, fused_mlp_cuda, prefix_sum_cuda, gather_probe_cuda):\n"
         "    assert w.LIBRARY.handle is None and w.launches == 0, w\n"
+        "from mitsuba3_experiments_tpu_torch.scene import native, obj, xml\n"
+        "assert native.LIBRARY.handle is None   # the host library builds at first use\n"
         "assert 'triton' not in sys.modules\n"
         "assert 'torch.utils.cpp_extension' not in sys.modules\n"
         "print('ok')\n"

@@ -6,7 +6,8 @@ filter) give the gradients of JAX's within rtol 1e-3 / atol 1e-4 max|g|, the
 JAX package's own tolerance (tests/test_replay.py:192-195): the two
 packages sum the same terms in another order.  The port's own entry points
 (`replay_render_grad`, the `replay_grads` dispatcher, the sorted mode fed
-the recorder's film) agree with its full replay.
+the recorder's film) agree with its full replay; the dispatcher refuses an
+unknown mode.  The truncated replay is held in test_torch_replay_trunc.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -77,6 +78,6 @@ def test_replay_render_grad_and_dispatch(bvh, frame):
         assert torch.equal(auto[k], g2[k])
     with pytest.raises(ValueError):
         replay_grads(ts, tp, params.update, target, SEED, rec, frame.n, chunk=frame.n,
-                     mode="trunc", **kw)
+                     mode="no_such_mode", **kw)
     with pytest.raises(ValueError):
         replay_grads_full(ts, tp, params.update, target, SEED, rec, frame.n, chunk=1000, **kw)

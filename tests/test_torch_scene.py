@@ -1,24 +1,23 @@
 """Port scene compiler against the JAX package: every table of load_dict
-byte-equal (the CDFs allclose at rtol 1e-6), and the numpy round trip."""
-import os
-
+byte-equal (the CDFs allclose at rtol 1e-6) with both packages building
+their trees with the port's host library, and the numpy round trip."""
 import numpy as np
 import pytest
 import torch
 
 from mitsuba3_experiments_tpu.scene import load_dict as jax_load_dict
+from mitsuba3_experiments_tpu.scene import native as jax_native
 from mitsuba3_experiments_tpu_torch.scene import (
     cornell_box,
     load_dict,
     mesh as meshlib,
+    native,
     scene_from_numpy,
     scene_to_numpy,
     standin_dict,
 )
 
 torch.set_num_threads(2)
-
-NATIVE_LIB = os.path.join(os.path.dirname(__file__), "..", "native", "libm3t.so")
 
 # cumulative sums: jnp.cumsum sums in another order than the port's numpy
 CDF_KEYS = {
@@ -49,9 +48,9 @@ def _raw(a):
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
-def test_load_dict_tables_byte_equal(name):
-    if os.path.exists(NATIVE_LIB):
-        pytest.skip("the JAX package would take its native BVH builder")
+def test_load_dict_tables_byte_equal(name, monkeypatch):
+    # the JAX package's bridge finds the port's build of the same native/*.cpp
+    monkeypatch.setattr(jax_native, "_find_lib", native.LIBRARY.load)
     d = SCENES[name]()
     jax_tables = scene_to_numpy(jax_load_dict(d)[0])
     scene, meta = load_dict(d, device="cpu")
