@@ -120,19 +120,37 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     finite, nonzero gradients; timed;
 14. record and replay on the card against the CPU on the 32x24
     sphere / floor / light scene (spp 2, depth 4): prims and occlusion
-    equal, gradients within rtol 1e-3 / atol 1e-4 max|g|.
+    equal, gradients within rtol 1e-3 / atol 1e-4 max|g|;
+15. the integrator zoo on phase 3's stand-in at 1280x720, one phase each:
+    15a SimpleIntegrator (spp 4, depth 8, tent), 15b render_wavefront (spp
+    4, depth 8, tent), 15c ParticleTracer (spp 1), 15d render_spectral (spp
+    1, depth 8), 15e BDPTIntegrator (spp 1, max_depth 8), 15f SPPM (two
+    frames at its defaults), 15g RestirGI (two render_frame_chunked frames
+    at its defaults, but the inner path's max_depth 4).  Each prints its
+    seconds, camera rays/s (light paths/s for the particle tracer, photons/s
+    for SPPM) and K1's launches beside the card's name and power limit; its
+    image must be finite with a mean above 0, K1 must have launched and the
+    plain traversal not; K1 is held against the plain traversal on the
+    first 65,536 active lanes of its first closest-hit launch and, where the
+    integrator traces shadow or connection rays, its first any-hit launch,
+    with 0 mismatches; the image mean is held against phase 12's
+    render_persistent image at the bounds written beside each call (the JAX
+    package's own test's, or PERF.md's);
+16. each new integrator on the Cornell box + a 4k-triangle sphere at 32x32
+    on the card against the CPU: means within 1e-3 relative, at least 0.99
+    of the pixels within rtol 1e-3 / atol 1e-4 (as phase 6).
 
 Each kernel's counts are set to 0 just before the path that runs it and
 read just after: K1's around the render of phase 4, the differentiable
 render and its backward (6b), the NRC training and render (8b), the
-production fwd+bwd of phase 12 and the trunc record (13b) — the JSON line
-gives the sum of the last five — K2's from the training of phase 8 and
-the NRC training and render (8b), summed, K3's from the ops entry point of
-phase 9 (no path of the renderer or trainer scans: the CDFs are built on
-the host, as in the JAX package), K4's from its probe entry point in phase
-11.  The
-kernels' JSON line gives each kernel's and its plain version's times at
-the main path's shapes: K1 on the render's camera batch (phase 5, which
+production fwd+bwd of phase 12, the trunc record (13b) and each phase of
+15 — the JSON line gives the sum of all but the first — K2's from the
+training of phase 8 and the NRC training and render (8b), summed, K3's
+from the ops entry point of phase 9 (no path of the renderer or trainer
+scans: the CDFs are built on the host, as in the JAX package), K4's from
+its probe entry point in phase 11.  The kernels' JSON line gives each
+kernel's and its plain version's times at the main path's shapes: K1 on
+the render's camera batch (phase 5, which
 also prints the sum over the pass; phase 3 prints them at 65,536 rays), K2
 on 524,288 field rows (phase 7), K3 on the stand-in's 1,964,564 face areas
 (phase 9), K4 at 65,536 lanes x 64 steps (phase 11).  Beside them,
@@ -1277,6 +1295,222 @@ def phase_nrc(scene, card, steps=NRC_STEPS):
     return train, rend, k2_rows, k2_dev, err_k1, err_k2
 
 
+# ---- phases 15a-15g and 16: the integrator zoo ------------------------------
+
+ZOO_HOLD_LANES = 65_536
+ZOO_SMALL_TOL = (1e-3, 1e-4)   # card against CPU: rtol, atol (as phase 6)
+
+
+def hold_first_lanes(name, made):
+    """K1 against the plain traversal on a launch's first ZOO_HOLD_LANES
+    active lanes; returns the max abs error (phase 3's checks)."""
+    import torch
+
+    from mitsuba3_experiments_tpu_torch.intersect import bvh_torch
+
+    (unified, n_nodes, o, d, maxt, active), kw, out_k = made
+    idx = torch.nonzero(active).squeeze(1)[:ZOO_HOLD_LANES]
+    sub = (o[idx].contiguous(), d[idx].contiguous(), maxt[idx].contiguous(),
+           torch.ones(idx.shape, dtype=torch.bool, device=o.device))
+    out_p = bvh_torch.traverse_plain(unified, n_nodes, *sub, any_hit=kw["any_hit"],
+                                     layout=kw["layout"])
+    return hold(name, tuple(x[idx] for x in out_k), out_p, kw["any_hit"], idx.numel())
+
+
+def zoo_stage(label, run, card, units, n_units, shadow_rays):
+    """Runs one integrator of phase 15 on the stand-in: seconds, units/s,
+    K1's launches (and no plain traversal), the image finite and above 0,
+    K1 held against plain on its first closest-hit launch and, where the
+    integrator traces shadow or connection rays (`shadow_rays`), its first
+    any-hit launch.  Returns (image as numpy, K1 launches, max abs err)."""
+    import torch
+
+    out = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    made = k1_launches(lambda: out.append(run()))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    first = {}
+    for launch in made:
+        first.setdefault(launch[1]["any_hit"], launch)
+    del made
+    img = out[0].cpu().numpy()
+    print(f"[{label}] {secs:.3f} s, {n_units / secs:.1f} {units}/s, K1 launches {counts['k1']}, "
+          f"plain traversals {counts['plain_traverse']} ({card})")
+    print(f"[{label}] image mean {img.mean():.6f} (channels "
+          + ", ".join(f"{c:.6f}" for c in img.reshape(-1, 3).mean(0)) + ")")
+    check(bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
+          f"{label}: the image is not finite or is black")
+    check(counts["k1"] > 0 and counts["plain_traverse"] == 0,
+          f"{label}: the ray queries did not run on K1 alone")
+    kinds = {False, True} if shadow_rays else {False}
+    check(set(first) == kinds, f"{label}: K1 launched for {sorted(first)} (any_hit), not "
+          f"{sorted(kinds)}")
+    err = max(hold_first_lanes(f"{label} first {'any' if k else 'closest'} hit", first[k])
+              for k in kinds)
+    return img, counts["k1"], err
+
+
+def mean_ratio(label, img, ref, lo, hi, mask=None):
+    """Checks lo < mean(img) / mean(ref) < hi (over `mask` when given)."""
+    if mask is not None:
+        img, ref = img[mask], ref[mask]
+    r = float(img.mean()) / float(ref.mean())
+    print(f"[{label}] mean against render_persistent's: ratio {r:.4f} (bounds {lo}, {hi})")
+    check(lo < r < hi, f"{label}: image mean ratio {r:.4f} to the path render outside ({lo}, {hi})")
+
+
+def phase_zoo(scene, card, ref):
+    """Phases 15a-15g: each integrator of the zoo on the stand-in at
+    1280x720, its image mean against render_persistent's `ref` (spp 4,
+    depth 8, tent) at the tolerance of the JAX package's own test of it
+    (PERF.md, PR 7 findings, for the bounds that test does not give).
+    Returns ({phase: K1 launches}, max abs err of the holds)."""
+    from mitsuba3_experiments_tpu_torch.integrators import (
+        BDPTIntegrator, ParticleTracer, RestirGI, SimpleIntegrator, SpectralIntegrator, SPPM,
+        render, render_spectral, render_wavefront)
+
+    w, h = RES
+    launches, err = {}, 0.0
+
+    def stage(key, label, run, units="camera rays", n_units=w * h, shadow_rays=True):
+        nonlocal err
+        img, k1, e = zoo_stage(f"{key} {label}", run, card, units, n_units, shadow_rays)
+        launches[key] = k1
+        err = max(err, e)
+        return img
+
+    # 15a: BSDF sampling only; tests/test_golden_oracle.py holds its mean to
+    # 3%, on the Cornell box; on the stand-in the path tracer reads low
+    # behind null and mask surfaces, which NEE's shadow rays take for opaque
+    # and BSDF sampling does not (PERF.md, PR 7: 1.0334 in run 2)
+    img = stage("15a", "simple spp 4 depth 8",
+                lambda: render(scene, SimpleIntegrator(max_depth=8), spp=SPP, rfilter="tent"),
+                n_units=w * h * SPP, shadow_rays=False)
+    mean_ratio("15a simple", img, ref, 0.97, 1.06)
+    # 15b: the same per-ray estimates as render_persistent, filter splats in
+    # another order (tests/test_wavefront.py: atol 5e-5 against render())
+    img = stage("15b", "render_wavefront spp 4 depth 8 tent",
+                lambda: render_wavefront(scene, spp=SPP, max_depth=MAX_DEPTH, rfilter="tent"),
+                n_units=w * h * SPP)
+    diff = float(np.abs(img - ref).max())
+    print(f"[15b render_wavefront] max abs diff to render_persistent's image {diff:.3e}")
+    check(diff <= 5e-5, f"render_wavefront differs from render_persistent by {diff:.3e}")
+    # 15c: light paths splatted to the camera (W*H of them at spp 1, in
+    # passes of 2^18 whose remainder is dropped, as in JAX); the
+    # direct-emission pass adds W*H camera rays
+    chunk = min(w * h, 1 << 18)
+    n_paths = max(w * h // chunk, 1) * chunk
+    img = stage("15c", "ptracer spp 1", lambda: ParticleTracer().render(scene, spp=1),
+                units="light paths", n_units=n_paths)
+    # the JAX test's (0.9, 1.1) is for the diffuse Cornell box; the particle
+    # tracer cannot connect camera-visible delta surfaces (PERF.md, PR 7)
+    mean_ratio("15c ptracer", img, ref, 0.8, 1.1)
+    # 15d: tests/test_spectral.py holds channel means to rtol 0.2 under the
+    # Cornell box's white light; the stand-in's warm lights read brighter
+    # after upsampling and white balance (PERF.md, PR 7)
+    img = stage("15d", "render_spectral spp 1 depth 8",
+                lambda: render_spectral(scene, SpectralIntegrator(max_depth=8), spp=1),
+                shadow_rays=False)
+    for c in range(3):
+        mean_ratio(f"15d spectral channel {c}", img[..., c], ref[..., c], 0.8, 1.3)
+    # 15e: max_depth cut from 16 to 8 for time; the JAX test's 5% is for the
+    # diffuse Cornell box: the stand-in's null and mask surfaces block
+    # connections and NEE alike, and its estimate is heavy-tailed (PERF.md)
+    img = stage("15e", "bdpt spp 1 max_depth 8",
+                lambda: render(scene, BDPTIntegrator(max_depth=8), spp=1))
+    mean_ratio("15e bdpt", img, ref, 0.85, 1.05)
+    # 15f: two frames at its defaults; tests/test_bdpt_sppm.py holds the
+    # mean over pixels brighter than 0.05 within a factor of 2 at 32x32; at
+    # 1280x720 a cell holds far more than the 32 visible points a photon
+    # looks at (max_per_cell), so most get none (PERF.md, PR 7: 0.3990)
+    sppm = SPPM()
+
+    def sppm_frames():
+        st = sppm.init_state(scene)
+        for i in range(2):
+            img, st = sppm.render_frame(scene, st, i)
+        return img
+
+    img = stage("15f", "sppm two frames", sppm_frames, units="photons",
+                n_units=2 * sppm.photon_count, shadow_rays=False)
+    mean_ratio("15f sppm", img, ref, 0.3, 2.0, mask=ref.mean(-1) > 0.05)
+    # 15g: two banded frames at its defaults but the inner path's depth, cut
+    # from 8 to 4 for time, their average; the JAX test's 12% is for the
+    # average of 16 frames after 8 (PERF.md, PR 7)
+    restir = RestirGI(max_depth=4)
+
+    def restir_frames():
+        st, acc = restir.init_state(scene), 0.0
+        for i in range(2):
+            img, st = restir.render_frame_chunked(scene, st, i)
+            acc = acc + img
+        return acc / 2
+
+    img = stage("15g", "restirgi two banded frames depth 4", restir_frames, n_units=2 * w * h)
+    mean_ratio("15g restirgi", img, ref, 0.25, 2.5)
+    return launches, err
+
+
+def zoo_small_runs():
+    """(name, run(scene) -> image) of each new integrator at phase 16's
+    small settings."""
+    from mitsuba3_experiments_tpu_torch.integrators import (
+        BDPTIntegrator, ParticleTracer, RestirGI, SimpleIntegrator, SpectralIntegrator, SPPM,
+        render, render_spectral, render_wavefront)
+
+    def frames(integ, step):
+        def run(scene):
+            st = integ.init_state(scene)
+            for i in range(2):
+                img, st = step(integ, scene, st, i)
+            return img
+        return run
+
+    return (
+        ("simple", lambda s: render(s, SimpleIntegrator(max_depth=3), spp=2)),
+        ("render_wavefront", lambda s: render_wavefront(s, spp=2, max_depth=3, rfilter="tent")),
+        ("ptracer", lambda s: ParticleTracer(max_depth=3).render(s, spp=1)),
+        ("render_spectral", lambda s: render_spectral(s, SpectralIntegrator(max_depth=3),
+                                                      spp=2)),
+        ("bdpt", lambda s: render(s, BDPTIntegrator(max_depth=3), spp=1)),
+        ("bdpt (1,1)", lambda s: render(s, BDPTIntegrator(max_depth=3, mis=False), spp=1)),
+        ("sppm", frames(SPPM(max_depth=3, photon_count=1 << 12, initial_radius=0.1),
+                        lambda i, s, st, k: i.render_frame(s, st, k))),
+        ("restirgi", frames(RestirGI(max_depth=2),
+                            lambda i, s, st, k: i.render_frame_chunked(s, st, k, chunk=512))),
+    )
+
+
+def phase_zoo_card_vs_cpu(device):
+    """Phase 16: each new integrator on the Cornell box + a 4k-triangle
+    sphere at 32x32, on the card (K1) and on the CPU (the plain traversal,
+    whose path the CPU tests hold against the JAX package): means within
+    1e-3 relative, at least 0.99 of the pixels within rtol 1e-3 / atol
+    1e-4, as phase 6."""
+    import torch
+
+    rtol, atol = ZOO_SMALL_TOL
+    cpu_scene = small_nerad_scene(torch.device("cpu"))
+    card_scene = small_nerad_scene(device)
+    for name, run in zoo_small_runs():
+        reset_counts()
+        got = run(card_scene).cpu().numpy()
+        k1 = read_counts()["k1"]
+        ref = run(cpu_scene).numpy()
+        rel = abs(float(got.mean()) - float(ref.mean())) / float(ref.mean())
+        close = float(np.isclose(got, ref, rtol=rtol, atol=atol).all(-1).mean())
+        print(f"[16 {name}] 32x32 cornell+sphere: mean card {got.mean():.6f} cpu {ref.mean():.6f} "
+              f"(rel {rel:.2e}), pixels within rtol {rtol}/atol {atol}: {close:.4f}, K1 "
+              f"launches {k1}")
+        check(k1 > 0, f"16 {name}: the card run did not launch K1")
+        check(rel < 1e-3, f"16 {name}: card and CPU image means differ by {rel:.2e}")
+        check(close >= 0.99, f"16 {name}: only {close:.4f} of the pixels agree with the CPU")
+
+
 def main() -> int:
     import torch
 
@@ -1466,6 +1700,12 @@ def main() -> int:
     # ---- phase 14: record + replay, card against CPU -----------------------
     phase_card_vs_cpu_replay(dev)
 
+    # ---- phases 15a-15g: the integrator zoo on the stand-in ----------------
+    zoo, err_g = phase_zoo(scene, card, target.cpu().numpy())
+
+    # ---- phase 16: the zoo, card against CPU --------------------------------
+    phase_zoo_card_vs_cpu(dev)
+
     k2_bound, k2_by = k2_least_ms(FIELD_ROWS, K2_SIZES)
     print(f"[K2] {FIELD_ROWS} rows: kernel at {k2_bound / k2_ms:.4f} of the bound, device time at "
           f"{k2_bound / k2_dev:.4f} of it")
@@ -1476,16 +1716,19 @@ def main() -> int:
     print(f"[nrc] K2 at {nrc_rows} query rows: device time {nrc_k2_ms:.4f} ms, bound "
           f"{k2_least_ms(nrc_rows, K2_SIZES)[0]:.4f} ms; launches: training {nrc_train['k2']}, "
           f"render {nrc_render['k2']}")
-    k1_launches = prod["k1"] + k1_diff + k1_trunc + nrc_train["k1"] + nrc_render["k1"]
+    k1_launches = (prod["k1"] + k1_diff + k1_trunc + nrc_train["k1"] + nrc_render["k1"]
+                   + sum(zoo.values()))
     k2_launches = train["k2"] + nrc_train["k2"] + nrc_render["k2"]
     print(f"[smoke] K1 launches: fwd+bwd d8 {prod['k1']}, differentiable render {k1_diff}, "
           f"trunc record {k1_trunc}, NRC training {nrc_train['k1']}, NRC render "
-          f"{nrc_render['k1']}; K2 launches: nerad training {train['k2']}, NRC training "
+          f"{nrc_render['k1']}, zoo " + ", ".join(f"{k} {v}" for k, v in zoo.items())
+          + f"; K2 launches: nerad training {train['k2']}, NRC training "
           f"{nrc_train['k2']}, NRC render {nrc_render['k2']}")
     print(f"[smoke] total {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": [
         {"name": "bvh8_traverse", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-         "launches": k1_launches, "max_abs_err": max(err_a, err_b, err_c, err_d, err_e, err_f),
+         "launches": k1_launches,
+         "max_abs_err": max(err_a, err_b, err_c, err_d, err_e, err_f, err_g),
          "ms": k_main_ms, "plain_ms": p_main_ms, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None, "device_ms": per_ms[0]},
         {"name": "fused_mlp", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,

@@ -77,6 +77,14 @@ def safe_rcp(x):
     return safe_div(1.0, x)
 
 
+def to_int32(x):
+    """float -> int32 values toward zero (held in int64) as XLA converts:
+    saturating at the int32 range, NaN -> 0 (a plain cast of an
+    out-of-range float is undefined)."""
+    f = torch.clamp(torch.nan_to_num(torch.trunc(x), nan=0.0), -2.0**31, 2.0**31)  # exact in f32
+    return torch.clamp(f.to(torch.int64), -(1 << 31), (1 << 31) - 1)
+
+
 def sign_not_zero(x):
     return torch.where(x >= 0.0, 1.0, -1.0)
 

@@ -1,8 +1,8 @@
 """Interaction records: frozen dataclasses of tensors.
 
-Counterpart of ``mitsuba3_experiments_tpu.core.records`` (+ the ``twhere``
-and ``trepeat`` of ``core/struct.py``).  Every field has the leading
-wavefront shape (N,); vectors are (N, 3).
+Counterpart of ``mitsuba3_experiments_tpu.core.records``.  Every field
+has the leading wavefront shape (N,); vectors are (N, 3).  ``twhere`` and
+``trepeat`` live in ``core/struct.py`` and are imported here too.
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import dataclasses
 import torch
 
 from . import math as m
+from .struct import trepeat, twhere  # noqa: F401
 
 
 class BSDFFlags:
@@ -36,27 +37,6 @@ class BSDFFlags:
 
 def has_flag(flags, bit):
     return (flags & bit) != 0
-
-
-def twhere(mask, a, b):
-    """Record select: field-wise torch.where with the (N,) mask broadcast
-    over trailing dims (dr.select on structs)."""
-    out = {}
-    for f in dataclasses.fields(a):
-        x, y = getattr(a, f.name), getattr(b, f.name)
-        mk = mask.reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
-        out[f.name] = torch.where(mk, x, y)
-    return type(a)(**out)
-
-
-def trepeat(record, count: int):
-    """dr.repeat on a record: [a b c] -> [a a b b c c] along the wavefront
-    axis (``core/struct.py::trepeat``; torch.repeat_interleave, not
-    Tensor.repeat, which would tile [a b c a b c])."""
-    return type(record)(**{
-        f.name: torch.repeat_interleave(getattr(record, f.name), count, dim=0)
-        for f in dataclasses.fields(record)
-    })
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,3 +126,14 @@ class BSDFSample:
     pdf: torch.Tensor           # (N,)
     eta: torch.Tensor           # (N,)
     sampled_type: torch.Tensor  # (N,) int32 BSDFFlags of the sampled lobe
+
+
+@dataclasses.dataclass(frozen=True)
+class PositionSample:
+    """A sampled point on a surface with its area density."""
+
+    p: torch.Tensor         # (N, 3)
+    n: torch.Tensor         # (N, 3)
+    uv: torch.Tensor        # (N, 2)
+    pdf: torch.Tensor       # (N,) area density
+    prim_idx: torch.Tensor  # (N,) int32

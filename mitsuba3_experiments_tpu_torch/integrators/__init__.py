@@ -20,3 +20,10 @@ from .replay import (  # noqa: F401
     replay_radiance,
     replay_render_grad,
 )
+from .simple import SimpleIntegrator  # noqa: F401
+from .restir import RestirGI  # noqa: F401
+from .bdpt import BDPTIntegrator  # noqa: F401
+from .sppm import SPPM  # noqa: F401
+from .ptracer import ParticleTracer  # noqa: F401
+from .spectral import SpectralIntegrator, render_spectral  # noqa: F401
+from .wavefront import render_wavefront  # noqa: F401

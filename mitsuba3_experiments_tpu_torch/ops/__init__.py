@@ -1,5 +1,5 @@
 """Data-parallel primitives (counterpart of ``mitsuba3_experiments_tpu.ops``;
-the SPPM spatial hash, ``ops/hashgrid.py``, is not ported yet)."""
+SPPM's hash grid is ``ops/hashgrid.py``)."""
 from .prefix_sum import prefix_sum, prefix_sum_blocked  # noqa: F401
 from .reductions import (  # noqa: F401
     block_sum,

@@ -1,6 +1,6 @@
 """Area and environment emitters: evaluation, next-event estimation
-sampling, MIS pdfs.  Counterpart of ``mitsuba3_experiments_tpu.render.emitter``
-(the forward path's functions).
+sampling, MIS pdfs, light rays.  Counterpart of
+``mitsuba3_experiments_tpu.render.emitter``.
 
 Emissive geometry is flattened to a global set of emissive faces with a
 power-weighted discrete distribution (scene/types.py EmitterTable); direction
@@ -12,7 +12,7 @@ import torch
 
 from ..core import math as m
 from ..core import warp
-from ..core.records import DirectionSample
+from ..core.records import DirectionSample, Ray
 from ..scene.types import Scene
 
 
@@ -250,3 +250,37 @@ def pdf_emitter_direction_packed(scene: Scene, si_ref, si_hit, em_pmf, em_area, 
     if _has_env_map(em):
         pdf = pdf * (1.0 - em.env_select_p)   # NEE technique-selection prob
     return torch.where(has & (cos_l > 0.0), pdf, 0.0)
+
+
+def sample_emitter_ray(scene: Scene, u_pos2, u_dir2, active=None):
+    """Sample a ray leaving an emitter (scene.sample_emitter_ray): a
+    power-weighted face pick, a uniform point on it and a cosine-weighted
+    direction about the face normal.  The light paths of the particle
+    tracer, BDPT and SPPM start here.
+
+    Returns (ray, weight, emitter_id) with weight = Le * pi / p_area (the
+    cosine direction pdf cancels cos theta)."""
+    em = scene.emitters
+    u0 = u_pos2[..., 0]
+    slot = em.face_dist.sample(u0)
+    row = em.em_face_packed[slot.long()]                 # (N, 16)
+    lo, hi = row[:, 11], row[:, 12]
+    u_re = torch.clamp(m.safe_div(u0 * em.face_dist.total - lo, hi - lo), 0.0, 1.0 - 1e-7)
+    v0, e1, e2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
+    b = warp.square_to_uniform_triangle(torch.stack([u_re, u_pos2[..., 1]], dim=-1))
+    p = v0 + e1 * b[..., 0:1] + e2 * b[..., 1:2]
+    ng = m.normalize(m.cross(e1, e2))
+
+    d_local = warp.square_to_cosine_hemisphere(u_dir2)
+    s, t = m.coordinate_system(ng)
+    d = m.to_world(s, t, ng, d_local)
+
+    area = row[:, 9]
+    pmf = row[:, 10]
+    p_area = m.safe_div(pmf, area)
+    em_id = row[:, 13].contiguous().view(torch.int32)
+    rad = em.radiance.index_select(0, em_id.long())
+    weight = rad * (m.PI * m.safe_rcp(p_area))[:, None]
+
+    o = p + ng * m.RAY_EPS
+    return Ray.make(o, d), weight, em_id

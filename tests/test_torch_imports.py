@@ -33,7 +33,10 @@ def test_every_module_imports_without_jax():
     for new in ("integrators.persistent", "integrators.pipelined", "integrators.replay",
                 "integrators.wavefront", "scene.params", "ops.gather_probe",
                 "ops.gather_probe_cuda", "integrators.nrc", "scene.native", "scene.obj",
-                "scene.xml", "scene.serialize", "utils.image"):
+                "scene.xml", "scene.serialize", "utils.image", "core.struct", "core.spectrum",
+                "ops.hashgrid", "integrators.simple", "integrators.ptracer",
+                "integrators.spectral", "integrators.bdpt", "integrators.sppm",
+                "integrators.restir"):
         assert f"{port.__name__}.{new}" in mods, new
     code = (
         "import importlib, sys\n"
