@@ -138,14 +138,38 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     package's own test's, or PERF.md's);
 16. each new integrator on the Cornell box + a 4k-triangle sphere at 32x32
     on the card against the CPU: means within 1e-3 relative, at least 0.99
-    of the pixels within rtol 1e-3 / atol 1e-4 (as phase 6).
+    of the pixels within rtol 1e-3 / atol 1e-4 (as phase 6);
+17. the MCMC and learned-sampling slice: 17a Pssmlt(mode="path") and 17b
+    Pssmlt(mode="simple") on phase 3's stand-in at 1280x720 (921,600
+    chains, depth 8, rr_depth 4, PSSMLT_ITERS rounds, 40 of them bootstrap),
+    each through phase 15's checks (seconds, rounds/s, chain-steps/s, K1's
+    launches and no plain traversal, the first closest-hit launch and, in
+    path mode, the first any-hit launch held against plain on 65,536
+    lanes), b (the bootstrap rounds' mean luminance) within 0.05 relative
+    of the mean luminance of phase 12's render_persistent image (17a) or
+    15a's SimpleIntegrator image (17b), 17a's image mean within 0.1 of
+    render_persistent's (17b's image, biased low by the chains' start-up,
+    is printed); 17c run_chain_1d at its defaults on the card: the JAX
+    test's assertions, the histogram within L1 0.02 of the CPU run; 17d
+    train_flow on the double spiral, affine then rqs, FlowConfig()'s
+    widths, FLOW_ITERS steps of 4096: the least loss below 0, at least 0.95
+    of 4,096 samples inside (-0.2, 1.2)^2, ms per step and one step's
+    kernels and peak memory (utils.profile), one step's loss on the card
+    within 1e-4 of the CPU's;
+    17e train_reparam at ReparamConfig()'s widths, 1000 steps of 4096, on
+    a gaussian bump: the last loss below 1.0, the mapped samples closer to
+    the bump; ms per step;
+18. five Pssmlt rounds, path and simple mode, on the 32x32 Cornell box +
+    sphere on the card against the CPU from the same state: at least 0.99
+    of the chains in the same state, accumulator means within 1e-3
+    relative.
 
 Each kernel's counts are set to 0 just before the path that runs it and
 read just after: K1's around the render of phase 4, the differentiable
 render and its backward (6b), the NRC training and render (8b), the
-production fwd+bwd of phase 12, the trunc record (13b) and each phase of
-15 — the JSON line gives the sum of all but the first — K2's from the
-training of phase 8 and the NRC training and render (8b), summed, K3's
+production fwd+bwd of phase 12, the trunc record (13b), each phase of 15
+and 17a, 17b — the JSON line gives the sum of all but the first — K2's
+from the training of phase 8 and the NRC training and render (8b), summed, K3's
 from the ops entry point of phase 9 (no path of the renderer or trainer
 scans: the CDFs are built on the host, as in the JAX package), K4's from
 its probe entry point in phase 11.  The kernels' JSON line gives each
@@ -325,9 +349,11 @@ def compare_kernel(name, scene, rays, timing):
     return err, k_ms, p_ms
 
 
-def k1_launches(run):
+def k1_launches(run, first_only=False):
     """Calls `run()` and returns every K1 launch it made: [(args, kwargs,
-    kernel outputs)], in launch order."""
+    kernel outputs)], in launch order; with `first_only`, only the first
+    closest-hit and the first any-hit launch (a long run's launches would
+    otherwise hold all their rays and hits on the card)."""
     from mitsuba3_experiments_tpu_torch.intersect import bvh_cuda
 
     launch = bvh_cuda.traverse_cuda
@@ -335,7 +361,8 @@ def k1_launches(run):
 
     def recording(*args, **kwargs):
         out = launch(*args, **kwargs)
-        made.append((args, kwargs, out))
+        if not first_only or all(m[1]["any_hit"] != kwargs["any_hit"] for m in made):
+            made.append((args, kwargs, out))
         return out
 
     bvh_cuda.traverse_cuda = recording
@@ -1322,14 +1349,15 @@ def zoo_stage(label, run, card, units, n_units, shadow_rays):
     K1's launches (and no plain traversal), the image finite and above 0,
     K1 held against plain on its first closest-hit launch and, where the
     integrator traces shadow or connection rays (`shadow_rays`), its first
-    any-hit launch.  Returns (image as numpy, K1 launches, max abs err)."""
+    any-hit launch.  Returns (image as numpy, K1 launches, max abs err,
+    seconds)."""
     import torch
 
     out = []
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    made = k1_launches(lambda: out.append(run()))
+    made = k1_launches(lambda: out.append(run()), first_only=True)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = read_counts()
@@ -1351,7 +1379,7 @@ def zoo_stage(label, run, card, units, n_units, shadow_rays):
           f"{sorted(kinds)}")
     err = max(hold_first_lanes(f"{label} first {'any' if k else 'closest'} hit", first[k])
               for k in kinds)
-    return img, counts["k1"], err
+    return img, counts["k1"], err, secs
 
 
 def mean_ratio(label, img, ref, lo, hi, mask=None):
@@ -1368,7 +1396,7 @@ def phase_zoo(scene, card, ref):
     1280x720, its image mean against render_persistent's `ref` (spp 4,
     depth 8, tent) at the tolerance of the JAX package's own test of it
     (PERF.md, PR 7 findings, for the bounds that test does not give).
-    Returns ({phase: K1 launches}, max abs err of the holds)."""
+    Returns ({phase: K1 launches}, max abs err of the holds, 15a's image)."""
     from mitsuba3_experiments_tpu_torch.integrators import (
         BDPTIntegrator, ParticleTracer, RestirGI, SimpleIntegrator, SpectralIntegrator, SPPM,
         render, render_spectral, render_wavefront)
@@ -1378,7 +1406,7 @@ def phase_zoo(scene, card, ref):
 
     def stage(key, label, run, units="camera rays", n_units=w * h, shadow_rays=True):
         nonlocal err
-        img, k1, e = zoo_stage(f"{key} {label}", run, card, units, n_units, shadow_rays)
+        img, k1, e, _ = zoo_stage(f"{key} {label}", run, card, units, n_units, shadow_rays)
         launches[key] = k1
         err = max(err, e)
         return img
@@ -1387,10 +1415,11 @@ def phase_zoo(scene, card, ref):
     # 3%, on the Cornell box; on the stand-in the path tracer reads low
     # behind null and mask surfaces, which NEE's shadow rays take for opaque
     # and BSDF sampling does not (PERF.md, PR 7: 1.0334 in run 2)
-    img = stage("15a", "simple spp 4 depth 8",
-                lambda: render(scene, SimpleIntegrator(max_depth=8), spp=SPP, rfilter="tent"),
-                n_units=w * h * SPP, shadow_rays=False)
-    mean_ratio("15a simple", img, ref, 0.97, 1.06)
+    simple_img = stage("15a", "simple spp 4 depth 8",
+                       lambda: render(scene, SimpleIntegrator(max_depth=8), spp=SPP,
+                                      rfilter="tent"),
+                       n_units=w * h * SPP, shadow_rays=False)
+    mean_ratio("15a simple", simple_img, ref, 0.97, 1.06)
     # 15b: the same per-ray estimates as render_persistent, filter splats in
     # another order (tests/test_wavefront.py: atol 5e-5 against render())
     img = stage("15b", "render_wavefront spp 4 depth 8 tent",
@@ -1452,7 +1481,7 @@ def phase_zoo(scene, card, ref):
 
     img = stage("15g", "restirgi two banded frames depth 4", restir_frames, n_units=2 * w * h)
     mean_ratio("15g restirgi", img, ref, 0.25, 2.5)
-    return launches, err
+    return launches, err, simple_img
 
 
 def zoo_small_runs():
@@ -1509,6 +1538,211 @@ def phase_zoo_card_vs_cpu(device):
         check(k1 > 0, f"16 {name}: the card run did not launch K1")
         check(rel < 1e-3, f"16 {name}: card and CPU image means differ by {rel:.2e}")
         check(close >= 0.99, f"16 {name}: only {close:.4f} of the pixels agree with the CPU")
+
+# ---- phases 17a-17e and 18: the MCMC and learned-sampling slice -------------
+
+PSSMLT_ITERS = 60          # 40 of them bootstrap rounds, as the JAX tests run it
+# the JAX tests' 400 steps of the same checks, not train_flow's default 2000:
+# at 12.8 and 41.7 ms a host-bound step (affine, rqs; PERF.md) 2000 steps
+# would take 109 s, over the whole budget of phases 17-18
+FLOW_ITERS, FLOW_BATCH = 400, 4096
+REPARAM_ITERS, REPARAM_BATCH = 1000, 4096
+BUMP, BUMP_SIG = (0.7, 0.3), 0.2   # tests/test_models.py's reparam target
+
+
+def phase_pssmlt(scene, card, ref, simple_ref):
+    """Phases 17a-17b: Pssmlt on the stand-in at 1280x720, one chain per
+    pixel (921,600), depth 8, rr_depth 4, PSSMLT_ITERS rounds, through
+    `run_chains` (what `render` runs); each timed with its K1 launches (and
+    no plain traversal), its first closest-hit (and, in path mode, any-hit)
+    launch held against plain on 65,536 lanes.  b, the bootstrap rounds'
+    mean luminance (36,864,000 uniform samples), is held within 0.05
+    relative of the mean luminance of render_persistent's image (path mode)
+    or SimpleIntegrator's (simple mode), the same estimators' images.  The
+    path-mode image mean is held within 0.1 of render_persistent's
+    (tests/test_mcmc.py's bound); the simple-mode image's ratio is printed:
+    the chains start from the bootstrap's last state, not from the
+    stationary distribution, and with BSDF sampling alone the image reads
+    far low for hundreds of rounds (PERF.md; ROADMAP queue 3).
+    Returns ({phase: K1 launches}, max abs err of the holds)."""
+    import torch
+
+    from mitsuba3_experiments_tpu_torch.core import math as m
+    from mitsuba3_experiments_tpu_torch.integrators import Pssmlt
+
+    w, h = RES
+    launches, err = {}, 0.0
+    for key, mode, against, name, shadow in (("17a", "path", ref, "render_persistent's", True),
+                                             ("17b", "simple", simple_ref, "15a simple's", False)):
+        integ = Pssmlt(max_depth=MAX_DEPTH, rr_depth=4, mode=mode)
+        label = f"{key} pssmlt {mode}"
+        b = []
+
+        def run():
+            state, accum = integ.run_chains(scene, seed=0, n_iterations=PSSMLT_ITERS)
+            b.append(float(integ.normalization(state)))
+            return (accum / (PSSMLT_ITERS - integ.bootstrap_count)).reshape(h, w, 3)
+
+        img, k1, e, secs = zoo_stage(label, run, card, "chain-steps", w * h * PSSMLT_ITERS,
+                                     shadow)
+        print(f"[{label}] {w * h} chains x {PSSMLT_ITERS} rounds ({integ.bootstrap_count} "
+              f"bootstrap): {PSSMLT_ITERS / secs:.3f} rounds/s, "
+              f"{w * h * PSSMLT_ITERS / secs:.1f} chain-steps/s, K1 {k1} launches = "
+              f"{k1 / PSSMLT_ITERS:.2f} per round ({card})")
+        lum = float(m.luminance(torch.from_numpy(against)).mean())
+        r_b = b[0] / lum
+        print(f"[{label}] b {b[0]:.6f} against the mean luminance {lum:.6f} of {name} image: "
+              f"ratio {r_b:.4f} (bounds 0.95, 1.05)")
+        check(0.95 < r_b < 1.05, f"{label}: b / mean luminance {r_b:.4f} outside (0.95, 1.05)")
+        if mode == "path":
+            mean_ratio(label, img, against, 0.9, 1.1)
+        else:
+            print(f"[{label}] image mean against {name}: ratio "
+                  f"{float(img.mean()) / float(against.mean()):.4f} (start-up bias, not held)")
+        launches[key], err = k1, max(err, e)
+    return launches, err
+
+
+def phase_metropolis(card):
+    """Phase 17c: run_chain_1d at its defaults (16,384 chains, 300 rounds)
+    on the card: tests/test_mcmc.py's assertions, and the final histogram
+    within L1 0.02 of the same run on the CPU."""
+    from mitsuba3_experiments_tpu_torch import utils
+    from mitsuba3_experiments_tpu_torch.integrators.metropolis import analytic_target, run_chain_1d
+
+    secs, (kls, hist, target) = utils.benchmark(lambda: run_chain_1d(device="cuda"), warmup=0,
+                                                iters=1)
+    _, cpu_hist, _ = run_chain_1d(device="cpu")
+    centers = (np.arange(64) + 0.5) / 64
+    t = analytic_target(centers)
+    t = t / t.sum()
+    hole = float(hist[(centers > 0.51) & (centers < 0.59)].sum())
+    mean_err = abs(float((hist * centers).sum() - (t * centers).sum()))
+    l1 = float(np.abs(hist - cpu_hist).sum())
+    print(f"[17c metropolis] 16384 chains x 300 rounds: {secs:.3f} s; KL {[round(k, 5) for k in kls]}, "
+          f"hole mass {hole:.5f}, mean error {mean_err:.5f}, L1 to the CPU run {l1:.5f} ({card})")
+    check(kls[-1] < 0.05 and kls[-1] <= kls[0] + 1e-3, f"17c: KL history {kls}")
+    check(hole < 0.01 and mean_err < 0.02, f"17c: hole mass {hole}, mean error {mean_err}")
+    check(l1 <= 0.02, f"17c: histogram L1 {l1:.5f} to the CPU run")
+
+
+def phase_flows(card):
+    """Phase 17d: train_flow on spiral_sample at JAX's defaults (6 couplings,
+    hidden 64, 2000 steps, batch 4096, lr 1e-3), affine then rqs: the least
+    recorded loss below 0 and at least 0.95 of 4,096 samples inside
+    (-0.2, 1.2)^2; ms per step (utils.benchmark) and one step's device
+    kernels and peak memory (utils.kernel_history); one step on the card
+    against the same step on the CPU, loss within 1e-4 relative."""
+    import torch
+
+    from mitsuba3_experiments_tpu_torch import utils
+    from mitsuba3_experiments_tpu_torch.models import normflow as nf
+
+    for coupling in ("affine", "rqs"):
+        cfg = nf.FlowConfig(coupling=coupling)
+        label = f"17d normflow {coupling}"
+        secs, (params, losses) = utils.benchmark(
+            lambda: nf.train_flow(nf.spiral_sample, cfg, n_iters=FLOW_ITERS, batch=FLOW_BATCH,
+                                  lr=1e-3, device="cuda"), warmup=0, iters=1)
+        with torch.no_grad():
+            xs, _ = nf.flow_sample(params, cfg, torch.Generator(device="cuda").manual_seed(2),
+                                   4096)
+        inside = float(((xs > -0.2) & (xs < 1.2)).all(-1).float().mean())
+        g = torch.Generator(device="cuda").manual_seed(3)
+        _, step = nf.make_train_step(params, cfg, lr=1e-3)
+        hist = utils.kernel_history(step, nf.spiral_sample(g, FLOW_BATCH))
+        print(f"[{label}] {FLOW_ITERS} steps of {FLOW_BATCH}: {secs:.3f} s = "
+              f"{secs * 1e3 / FLOW_ITERS:.3f} ms/step; one step {hist['kernels']} device kernels, "
+              f"{hist['device_ms']:.3f} ms of device time, {hist['host_ops']} host operators, "
+              f"peak {hist['peak_bytes'] / 1e6:.1f} MB ({card})")
+        print(f"[{label}] losses every 100 steps {[round(x, 4) for x in losses]}; "
+              f"{inside:.4f} of 4096 samples inside (-0.2, 1.2)^2")
+        check(min(losses) < 0.0, f"{label}: least loss {min(losses)} not below 0")
+        check(inside >= 0.95, f"{label}: only {inside:.4f} of the samples inside")
+        # one step, card against CPU, from the same parameters and batch
+        init = nf.init_flow(torch.Generator().manual_seed(4), cfg, device="cpu")
+        batch = nf.spiral_sample(torch.Generator().manual_seed(5), FLOW_BATCH)
+        card_init = [[{k: v.to("cuda", copy=True) for k, v in l.items()} for l in net]
+                     for net in init]
+        loss_cpu = float(nf.make_train_step(init, cfg, n_iters=FLOW_ITERS)[1](batch))
+        loss_card = float(nf.make_train_step(card_init, cfg, n_iters=FLOW_ITERS)[1](
+            batch.to("cuda")))
+        rel = abs(loss_card / loss_cpu - 1.0)
+        print(f"[{label}] one step: loss card {loss_card:.7f} cpu {loss_cpu:.7f} (rel {rel:.2e})")
+        check(rel < 1e-4, f"{label}: card and CPU step losses differ by {rel:.2e}")
+
+
+def phase_reparam(card):
+    """Phase 17e: train_reparam at ReparamConfig()'s defaults, 1000 steps of
+    4096, against tests/test_models.py's gaussian bump: the last loss below
+    1.0 and the mapped samples' median distance to the bump below 0.8 of
+    the uniform samples'."""
+    import torch
+
+    from mitsuba3_experiments_tpu_torch import utils
+    from mitsuba3_experiments_tpu_torch.models import reparam as rp
+
+    center = torch.tensor(BUMP, device="cuda")
+
+    def log_p(x):
+        return (-0.5 * torch.sum((x - center) ** 2, -1) / BUMP_SIG ** 2
+                - float(np.log(2 * np.pi * BUMP_SIG ** 2)))
+
+    secs, (params, losses) = utils.benchmark(
+        lambda: rp.train_reparam(log_p, rp.ReparamConfig(), n_iters=REPARAM_ITERS,
+                                 batch=REPARAM_BATCH, lr=3e-3, seed=1, device="cuda"),
+        warmup=0, iters=1)
+    z = torch.rand((4096, 2), generator=torch.Generator(device="cuda").manual_seed(9),
+                   device="cuda")
+    with torch.no_grad():
+        x = rp.apply_map(params, z)
+    c = np.array(BUMP)
+    d = float(np.median(np.linalg.norm(x.cpu().numpy() - c, axis=-1)))
+    d_uniform = float(np.median(np.linalg.norm(z.cpu().numpy() - c, axis=-1)))
+    print(f"[17e reparam] {REPARAM_ITERS} steps of {REPARAM_BATCH}: {secs:.3f} s = "
+          f"{secs * 1e3 / REPARAM_ITERS:.3f} ms/step ({card}); losses "
+          f"{[round(x, 4) for x in losses]}; median distance {d:.4f} against {d_uniform:.4f}")
+    check(len(losses) == REPARAM_ITERS // 100 and losses[-1] < 1.0, f"17e: losses {losses}")
+    check(d < 0.8 * d_uniform, f"17e: median distance {d:.4f} not below 0.8 x {d_uniform:.4f}")
+
+
+def phase_pssmlt_card_vs_cpu(device):
+    """Phase 18: five Pssmlt rounds (two bootstrap, depth 4, as phase 16
+    cuts depth for the CPU's time), path and simple mode, on the Cornell box
+    + a 4k-triangle sphere at 32x32, on the card (K1) and on the CPU (the
+    plain traversal, whose path the CPU tests hold against the JAX package)
+    from the same state: at least 0.99 of the chains in the same state
+    (position, roulette uniforms and radiance within rtol 1e-3 / atol 1e-4,
+    as phase 16), the accumulators' means within 1e-3 relative."""
+    import torch
+
+    from mitsuba3_experiments_tpu_torch.integrators import Pssmlt
+
+    rtol, atol = ZOO_SMALL_TOL
+    n = 32 * 32
+    for mode in ("path", "simple"):
+        integ = Pssmlt(max_depth=4, mode=mode, bootstrap_count=2)
+        runs = []
+        for dev in (device, torch.device("cpu")):
+            scene = small_nerad_scene(dev)
+            st = integ.init_state(n, device=dev)
+            acc = torch.zeros((n, 3), device=dev)
+            reset_counts()
+            for i in range(5):
+                st, acc = integ.step(scene, st, acc, 3, i, i < integ.bootstrap_count)
+            runs.append((st, acc.cpu(), read_counts()["k1"]))
+        (sg, ag, k1), (sc, ac, _) = runs
+        same = torch.ones(n, dtype=torch.bool)
+        for a, b in ((sg.pos, sc.pos), (sg.L, sc.L), (sg.u_rr.T, sc.u_rr.T)):
+            same &= torch.isclose(a.cpu(), b, rtol=rtol, atol=atol).all(-1)
+        share = float(same.float().mean())
+        rel = abs(float(ag.mean()) / float(ac.mean()) - 1.0)
+        print(f"[18 pssmlt {mode}] 32x32 cornell+sphere, 5 rounds: {share:.4f} of the chains in "
+              f"the same state on the card and the CPU, accumulator means {float(ag.mean()):.6f} / "
+              f"{float(ac.mean()):.6f} (rel {rel:.2e}), K1 launches {k1}")
+        check(k1 > 0, f"18 {mode}: the card run did not launch K1")
+        check(share >= 0.99, f"18 {mode}: only {share:.4f} of the chains agree with the CPU")
+        check(rel < 1e-3, f"18 {mode}: accumulator means differ by {rel:.2e}")
 
 
 def main() -> int:
@@ -1701,10 +1935,21 @@ def main() -> int:
     phase_card_vs_cpu_replay(dev)
 
     # ---- phases 15a-15g: the integrator zoo on the stand-in ----------------
-    zoo, err_g = phase_zoo(scene, card, target.cpu().numpy())
+    zoo, err_g, simple_img = phase_zoo(scene, card, target.cpu().numpy())
 
     # ---- phase 16: the zoo, card against CPU --------------------------------
     phase_zoo_card_vs_cpu(dev)
+
+    # ---- phases 17a-17e: PSSMLT, Metropolis, flows, reparam ------------------
+    t17 = time.perf_counter()
+    mcmc, err_h = phase_pssmlt(scene, card, target.cpu().numpy(), simple_img)
+    phase_metropolis(card)
+    phase_flows(card)
+    phase_reparam(card)
+
+    # ---- phase 18: PSSMLT, card against CPU -----------------------------------
+    phase_pssmlt_card_vs_cpu(dev)
+    print(f"[smoke] phases 17-18: {time.perf_counter() - t17:.1f} s ({card})")
 
     k2_bound, k2_by = k2_least_ms(FIELD_ROWS, K2_SIZES)
     print(f"[K2] {FIELD_ROWS} rows: kernel at {k2_bound / k2_ms:.4f} of the bound, device time at "
@@ -1717,18 +1962,19 @@ def main() -> int:
           f"{k2_least_ms(nrc_rows, K2_SIZES)[0]:.4f} ms; launches: training {nrc_train['k2']}, "
           f"render {nrc_render['k2']}")
     k1_launches = (prod["k1"] + k1_diff + k1_trunc + nrc_train["k1"] + nrc_render["k1"]
-                   + sum(zoo.values()))
+                   + sum(zoo.values()) + sum(mcmc.values()))
     k2_launches = train["k2"] + nrc_train["k2"] + nrc_render["k2"]
     print(f"[smoke] K1 launches: fwd+bwd d8 {prod['k1']}, differentiable render {k1_diff}, "
           f"trunc record {k1_trunc}, NRC training {nrc_train['k1']}, NRC render "
           f"{nrc_render['k1']}, zoo " + ", ".join(f"{k} {v}" for k, v in zoo.items())
+          + ", pssmlt " + ", ".join(f"{k} {v}" for k, v in mcmc.items())
           + f"; K2 launches: nerad training {train['k2']}, NRC training "
           f"{nrc_train['k2']}, NRC render {nrc_render['k2']}")
     print(f"[smoke] total {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": [
         {"name": "bvh8_traverse", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
          "launches": k1_launches,
-         "max_abs_err": max(err_a, err_b, err_c, err_d, err_e, err_f, err_g),
+         "max_abs_err": max(err_a, err_b, err_c, err_d, err_e, err_f, err_g, err_h),
          "ms": k_main_ms, "plain_ms": p_main_ms, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None, "device_ms": per_ms[0]},
         {"name": "fused_mlp", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,

@@ -1,7 +1,8 @@
 """mitsuba3_experiments_tpu_torch — the PyTorch + CUDA port of the path tracer.
 
 The path-MIS render and its gradients, neural radiosity, neural radiance
-caching and the integrator zoo of ``mitsuba3_experiments_tpu`` rebuilt on PyTorch
+caching, the integrator zoo, PSSMLT and the learned samplers of
+``mitsuba3_experiments_tpu`` rebuilt on PyTorch
 tensors, with the ray queries, the field's MLP and the scans served by
 hand-written CUDA kernels on the GPU.  Module names follow the JAX package, so each counterpart is
 easy to find:
@@ -15,13 +16,14 @@ easy to find:
   integrators/ path tracer (NEE + MIS + Russian roulette; forward and
                differentiable), production wavefront, record+replay
                gradients, neural radiance caching, the zoo (simple,
-               particle tracer, spectral, BDPT, SPPM, ReSTIR GI), render
-               driver, integrator registry
-  utils/       image I/O
+               particle tracer, spectral, BDPT, SPPM, ReSTIR GI), PSSMLT and
+               the Metropolis sampler, render loop, integrator registry
+  utils/       image I/O, checkpoints, profiling
   ops/         reductions, scans (plain + CUDA kernel), compaction, dispatch,
                hash grid
   models/      MLP, hash-grid encoding, fused MLP (CUDA kernel), neural
-               radiosity
+               radiosity, normalizing flows, reparameterized sampling
+  validation/  an independent numpy reference tracer (no torch)
   csrc/        CUDA C++ kernel sources, built at first use (cuda_build.py)
 
 Scene and wavefront tensors are float32 or int32 (int64 only inside the

@@ -72,6 +72,17 @@ class DiscreteDistribution2D:
             col_cdf=_f32(col_cdf, device), total=_f32(row_cdf[-1], device),
         )
 
+    def sample(self, u2):
+        """u2: (..., 2) -> (x, y) integer coords + pmf value."""
+        h, w = self.weights.shape
+        y = torch.clamp(torch.searchsorted(self.row_cdf, u2[..., 1] * self.total, right=True),
+                        0, h - 1)
+        row = self.col_cdf[y]                                  # (..., W)
+        x = torch.clamp(torch.sum(row <= (u2[..., 0] * row[..., -1]).unsqueeze(-1), dim=-1),
+                        0, w - 1)
+        pmf = self.weights.reshape(-1)[y * w + x] / self.total
+        return x.to(torch.int32), y.to(torch.int32), pmf
+
     def sample_reuse(self, u2):
         """Sample (x, y) and rescale both uniforms to fresh uniforms within
         the chosen texel."""

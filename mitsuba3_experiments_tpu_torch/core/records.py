@@ -74,6 +74,26 @@ class SurfaceInteraction:
     mat_id: torch.Tensor    # (N,) int32 material row, -1 invalid
     emitter_id: torch.Tensor  # (N,) int32 emitter row, -1 none
 
+    @staticmethod
+    def invalid(n: int, device=None):
+        """n missed lanes (the record before a path's first hit)."""
+        z3 = torch.zeros((n, 3), dtype=m.Float, device=device)
+
+        def axis(k):
+            v = z3.clone()
+            v[:, k] = 1.0
+            return v
+
+        def ids():
+            return torch.full((n,), -1, dtype=torch.int32, device=device)
+
+        return SurfaceInteraction(
+            t=torch.full((n,), m.INF, dtype=m.Float, device=device), p=z3, n=axis(2),
+            sh_n=axis(2), sh_s=axis(0), sh_t=axis(1),
+            uv=torch.zeros((n, 2), dtype=m.Float, device=device), wi=axis(2),
+            prim_idx=ids(), mat_id=ids(), emitter_id=ids(),
+        )
+
     @property
     def valid(self):
         return torch.isfinite(self.t)

@@ -27,3 +27,5 @@ from .sppm import SPPM  # noqa: F401
 from .ptracer import ParticleTracer  # noqa: F401
 from .spectral import SpectralIntegrator, render_spectral  # noqa: F401
 from .wavefront import render_wavefront  # noqa: F401
+from . import metropolis  # noqa: F401
+from .pssmlt import Pssmlt  # noqa: F401

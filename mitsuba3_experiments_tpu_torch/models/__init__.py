@@ -1,5 +1,7 @@
-"""Neural components (counterpart of ``mitsuba3_experiments_tpu.models``;
-``normflow`` and ``reparam`` are not ported yet)."""
+"""Neural components (counterpart of ``mitsuba3_experiments_tpu.models``):
+MLPs, the hash-grid encoding, the fused MLP, neural radiosity, normalizing
+flows (`normflow`) and reparameterized sampling (`reparam`)."""
+from . import normflow, reparam  # noqa: F401
 from .hashgrid_enc import (  # noqa: F401
     HashGridConfig,
     hashgrid_encode,

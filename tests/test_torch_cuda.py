@@ -708,3 +708,56 @@ def test_zoo_card_matches_cpu(card, name):
     assert float(close) >= 0.99
     for a, b in zip(got_state or (), ref_state or ()):
         assert float(torch.isclose(a.cpu(), b, rtol=1e-3, atol=1e-4).float().mean()) >= 0.99
+
+
+# ------------------------ the MCMC and learned-sampling slice ------------------------
+
+@pytest.mark.parametrize("mode", ["path", "simple"])
+def test_pssmlt_step_card_matches_cpu(card, mode):
+    """Three PSSMLT rounds (two bootstrap, one sampling) on the card (K1,
+    no plain traversal) and on the CPU from the same state: at least 0.99
+    of the chains in the same state, the accumulators' means and b_sum
+    within 1e-3 relative."""
+    from mitsuba3_experiments_tpu_torch.integrators import Pssmlt
+
+    integ = Pssmlt(max_depth=4, mode=mode, bootstrap_count=2)
+    runs = []
+    for dev in (card, torch.device("cpu")):
+        scene = _zoo_scene(dev)
+        n = 32 * 32
+        st = integ.init_state(n, device=dev)
+        acc = torch.zeros((n, 3), device=dev)
+        launches, plain = bvh_cuda.launches, bvh_torch.calls
+        for i in range(3):
+            st, acc = integ.step(scene, st, acc, 5, i, i < 2)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert bvh_cuda.launches > launches and bvh_torch.calls == plain
+        runs.append((st, acc.cpu()))
+    (sg, ag), (sc, ac) = runs
+    same = torch.isclose(sg.pos.cpu(), sc.pos, rtol=1e-4, atol=1e-5).all(-1)
+    same &= torch.isclose(sg.L.cpu(), sc.L, rtol=1e-3, atol=1e-4).all(-1)
+    assert float(same.float().mean()) >= 0.99
+    assert abs(float(ag.mean()) / float(ac.mean()) - 1.0) < 1e-3
+    assert abs(float(sg.b_sum) / float(sc.b_sum) - 1.0) < 1e-3
+
+
+@pytest.mark.parametrize("coupling", ["affine", "rqs"])
+def test_flow_log_eval_card_matches_cpu(card, coupling):
+    """flow_log_eval on the card against the CPU on the same parameters and
+    points, at the bf16 tolerance of the CPU tests: every value within 2e-2,
+    at least 0.9 of the rows within 1e-5."""
+    from mitsuba3_experiments_tpu_torch.models import normflow as nf
+
+    cfg = nf.FlowConfig(coupling=coupling, n_couplings=4, hidden=32)
+    params = nf.init_flow(torch.Generator().manual_seed(2), cfg, device="cpu")
+    for layer in (l for net in params for l in net):
+        layer["w"].mul_(10.0)
+        layer["b"].normal_(0.0, 0.15, generator=torch.Generator().manual_seed(3))
+    x = torch.rand((4096, 2), generator=torch.Generator().manual_seed(4)) * 1.4 - 0.2
+    with torch.no_grad():
+        ref = nf.flow_log_eval(params, cfg, x)
+        card_params = [[{k: v.to(card) for k, v in l.items()} for l in net] for net in params]
+        got = nf.flow_log_eval(card_params, cfg, x.to(card)).cpu()
+    torch.testing.assert_close(got, ref, rtol=2e-2, atol=2e-2)
+    assert float(torch.isclose(got, ref, rtol=1e-5, atol=1e-5).float().mean()) >= 0.9

@@ -3,6 +3,7 @@
 Each check runs in a fresh interpreter, so nothing the test process has
 already imported (the JAX package, for the other test files) can hide a
 dependency."""
+import ast
 import os
 import pkgutil
 import subprocess
@@ -36,7 +37,9 @@ def test_every_module_imports_without_jax():
                 "scene.xml", "scene.serialize", "utils.image", "core.struct", "core.spectrum",
                 "ops.hashgrid", "integrators.simple", "integrators.ptracer",
                 "integrators.spectral", "integrators.bdpt", "integrators.sppm",
-                "integrators.restir"):
+                "integrators.restir", "integrators.pssmlt", "integrators.metropolis",
+                "models.normflow", "models.reparam", "utils.checkpoint", "utils.profile",
+                "validation", "validation.oracle"):
         assert f"{port.__name__}.{new}" in mods, new
     code = (
         "import importlib, sys\n"
@@ -49,6 +52,48 @@ def test_every_module_imports_without_jax():
     )
     out = _run(code)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _imported_modules(path):
+    names = set()
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    return names
+
+
+def test_examples_import_no_jax():
+    """The port's example scripts (examples/torch_*.py) import neither jax
+    nor the JAX package, directly or through examples/_common.py; each
+    answers --help in a fresh interpreter with no jax loaded."""
+    ex_dir = os.path.join(REPO, "examples")
+    scripts = sorted(f for f in os.listdir(ex_dir) if f.startswith("torch_") and f.endswith(".py"))
+    for new in ("torch_run_pssmlt.py", "torch_metropolis_eval.py", "torch_train_normflow.py",
+                "torch_train_reparam.py"):
+        assert new in scripts, new
+    for name in scripts:
+        mods = _imported_modules(os.path.join(ex_dir, name))
+        bad = sorted(n for n in mods if n.split(".")[0] in ("jax", "jaxlib", "_common",
+                                                            "mitsuba3_experiments_tpu"))
+        assert not bad, (name, bad)
+    code = (
+        "import runpy, sys\n"
+        f"for path in {[os.path.join(ex_dir, n) for n in scripts]!r}:\n"
+        "    sys.argv = [path, '--help']\n"
+        "    try:\n"
+        "        runpy.run_path(path, run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code in (0, None), (path, e.code)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m.split('.')[0] == 'mitsuba3_experiments_tpu')\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0 and out.stdout.count("usage:") == len(scripts), (
+        out.stdout + out.stderr)
 
 
 def test_kernel_wrapper_imports_without_nvcc_or_triton():
