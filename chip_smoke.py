@@ -163,12 +163,34 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     sphere on the card against the CPU from the same state: at least 0.99
     of the chains in the same state, accumulator means within 1e-3
     relative.
+19. parallel/ on torch.distributed.  19a: a one-rank NCCL group in this
+    process (file:// rendezvous under out/), the stand-in at 1280x720:
+    render_sharded(PathIntegrator(max_depth=8, rr_depth=4), spp 4, tent)
+    equal to phase 4's image on every pixel (rtol 1e-4 / atol 1e-5), again
+    with chunks of SHARD_CHUNK lanes (the last launch of each pass padded),
+    K1 held against plain on the first closest-hit and any-hit launch of
+    the first; render_persistent_sharded(spp 4, depth 8, tent) equal to
+    phase 12's render_persistent image; sharded_replay_grad (spp 4, depth
+    8, rr_depth 4, chunks of 131,072 rays) against phase 12's target: its
+    gradients equal to phase 12's replay_grads within rtol 1e-3 / atol 1e-4
+    max|g|; sharded_grad_step (the differentiable render, spp_per_pass 1,
+    depth 8, at 1280x720): loss and gradients finite, gradients nonzero.
+    Each prints its seconds, camera rays/s, K1 launches and peak device
+    memory; then the four entry points run on phase 6's 32x32 Cornell box
+    + sphere as 19b's reference, and the group is destroyed.  19b: two
+    spawned processes on cuda:0 in a gloo group (NCCL takes one rank a
+    card), file:// rendezvous, joined within JOIN_S: each entry point on
+    the small scene, a padded chunk included, equal to the world-1 result
+    (images rtol 1e-4 / atol 1e-5, losses rtol 1e-4, gradients rtol 2e-3 /
+    atol 2e-4 max|g|), both ranks equal, K1 launched in each; a rank that
+    fails or hangs fails the run.
 
 Each kernel's counts are set to 0 just before the path that runs it and
 read just after: K1's around the render of phase 4, the differentiable
 render and its backward (6b), the NRC training and render (8b), the
 production fwd+bwd of phase 12, the trunc record (13b), each phase of 15
-and 17a, 17b — the JSON line gives the sum of all but the first — K2's
+and 17a, 17b, each entry point of 19a and 19b's two ranks — the JSON line
+gives the sum of all but the first — K2's
 from the training of phase 8 and the NRC training and render (8b), summed, K3's
 from the ops entry point of phase 9 (no path of the renderer or trainer
 scans: the CDFs are built on the host, as in the JAX package), K4's from
@@ -898,7 +920,7 @@ def fwd_bwd(scene, target, spp, depth, card, label):
 def phase_production(scene, integrator, card):
     """Phase 12: the production forward, then fwd+bwd at depth 8; returns
     (forward image, fwd+bwd counts, K1's max abs error against plain on the
-    recorder's first batch)."""
+    recorder's first batch, the fwd+bwd gradients)."""
     import torch
 
     from mitsuba3_experiments_tpu_torch.integrators import (
@@ -930,7 +952,7 @@ def phase_production(scene, integrator, card):
     check(bool(close.all()), "render_persistent differs from render() beyond rtol 1e-4/atol 1e-5")
     del ref
 
-    rec, _, counts, _ = fwd_bwd(scene, img, SPP, MAX_DEPTH, card, "fwd+bwd d8")
+    rec, grads, counts, _ = fwd_bwd(scene, img, SPP, MAX_DEPTH, card, "fwd+bwd d8")
     # the recorder's first batch (2^21 camera rays) again through the same
     # wavefront, every K1 launch kept: its record must equal the frame's, so
     # these launches are the counted run's own, on the same tensors; each is
@@ -974,7 +996,7 @@ def phase_production(scene, integrator, card):
     print(f"[fwd+bwd d8] first chunk: replayed radiance within rtol 1e-4 of the recorder's on "
           f"{close:.6f} of {REPLAY_CHUNK} rays, max abs err {float((L - ref_L).abs().max()):.3e}")
     check(close == 1.0, "the replayed radiance differs from the recorder's")
-    return img, counts, err_k1
+    return img, counts, err_k1, grads
 
 
 def phase_card_vs_cpu_replay(device):
@@ -1745,6 +1767,279 @@ def phase_pssmlt_card_vs_cpu(device):
         check(rel < 1e-3, f"18 {mode}: accumulator means differ by {rel:.2e}")
 
 
+# ---- phases 19a-19b: parallel/ on torch.distributed --------------------------
+
+# 19a's padded render: a pass of 1,843,200 lanes takes two launches of this
+# many, the second with 156,800 lanes past the wavefront
+SHARD_CHUNK = 1_000_000
+# 19b (and 19a's world-1 reference of it): phase 6's 32x32 Cornell box +
+# sphere, spp 2, depth 4; a chunk of 700 lanes a rank pads the last launch
+SMALL_SPP, SMALL_DEPTH, SMALL_CHUNK = 2, 4, 700
+JOIN_S = 240                # 19b's two ranks, start-up included
+SMALL_IMAGES = ("render", "render_chunk", "persistent")
+
+
+def rendezvous(name):
+    """A file:// rendezvous under out/, the file removed first (a process
+    group needs a new one)."""
+    path = os.path.abspath(os.path.join("out", name))
+    os.makedirs("out", exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    return f"file://{path}"
+
+
+def images_equal(label, got, ref, rtol=1e-4, atol=1e-5):
+    """Checks every pixel of `got` within rtol/atol of `ref` (numpy)."""
+    close = np.isclose(got, ref, rtol=rtol, atol=atol).all(axis=-1)
+    print(f"[{label}] pixels within rtol {rtol}/atol {atol}: {close.mean():.6f} "
+          f"({int((~close).sum())} outside), max abs err {np.abs(got - ref).max():.3e}, "
+          f"means {got.mean():.6f} / {ref.mean():.6f}")
+    check(bool(np.isfinite(got).all()) and float(got.mean()) > 0.0,
+          f"{label}: the image is not finite or is black")
+    check(bool(close.all()), f"{label}: the images differ beyond rtol {rtol}/atol {atol}")
+
+
+def grads_equal(label, got, ref, rtol, atol_rel):
+    """Checks each gradient of `got` within rtol / atol_rel max|ref| of
+    `ref` (dicts of numpy arrays by DIFF_KEYS)."""
+    for k in DIFF_KEYS:
+        a, b = got[k], ref[k]
+        scale = float(np.abs(b).max())
+        worst = float((np.abs(a - b) - rtol * np.abs(b)).max())
+        print(f"[{label}] d loss / d {k}: max |g| {scale:.6e}, largest |diff| - {rtol} |ref| "
+              f"{worst:.3e} (atol {atol_rel * scale:.3e})")
+        check(scale > 0.0 and bool(np.isfinite(a).all()), f"{label}: no finite gradient of {k}")
+        check(bool(np.allclose(a, b, rtol=rtol, atol=atol_rel * scale)),
+              f"{label}: the gradients of {k} differ")
+
+
+def sharded_stage(label, run, card, n_rays, hold=False):
+    """Runs one sharded entry point, `run()`, with the counts set to 0 just
+    before and read just after: seconds, camera rays/s, K1's launches (and
+    no plain traversal), peak device memory; with `hold`, K1 against the
+    plain traversal on its first closest-hit and first any-hit launch.
+    Returns (result, K1 launches, max abs err of the holds)."""
+    import torch
+
+    out = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    if hold:
+        made = k1_launches(lambda: out.append(run()), first_only=True)
+    else:
+        out.append(run())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[{label}] {secs:.3f} s, {n_rays / secs:.1f} camera rays/s, K1 launches "
+          f"{counts['k1']}, plain traversals {counts['plain_traverse']}, peak device memory "
+          f"{peak:.2f} GB ({card})")
+    check(counts["k1"] > 0 and counts["plain_traverse"] == 0,
+          f"{label}: the ray queries did not run on K1 alone")
+    err = 0.0
+    if hold:
+        first = {}
+        for launch in made:
+            first.setdefault(launch[1]["any_hit"], launch)
+        del made
+        check(set(first) == {False, True}, f"{label}: no closest-hit or no any-hit launch")
+        err = max(hold_first_lanes(f"{label} first {'any' if k else 'closest'} hit", first[k])
+                  for k in (False, True))
+    return out[0], counts["k1"], err
+
+
+def small_sharded(mesh, dev):
+    """The four sharded entry points on phase 6's 32x32 Cornell box +
+    sphere: {name: numpy result} (images, losses, gradients by DIFF_KEYS)."""
+    import torch
+
+    from mitsuba3_experiments_tpu_torch.integrators import PathIntegrator
+    from mitsuba3_experiments_tpu_torch.parallel import (
+        render_persistent_sharded, render_sharded, sharded_grad_step, sharded_replay_grad)
+    from mitsuba3_experiments_tpu_torch.scene import params
+
+    scene = small_nerad_scene(dev)
+    integ = PathIntegrator(max_depth=SMALL_DEPTH, rr_depth=2)
+    target = torch.as_tensor(
+        np.random.default_rng(19).uniform(0.0, 0.5, (32, 32, 3)).astype(np.float32), device=dev)
+    diff = {k: params.traverse(scene)[k] for k in DIFF_KEYS}
+    n = 32 * 32 * SMALL_SPP
+    out = {
+        "render": render_sharded(scene, integ, mesh, seed=3, spp=SMALL_SPP),
+        "render_chunk": render_sharded(scene, integ, mesh, seed=3, spp=SMALL_SPP,
+                                       chunk=SMALL_CHUNK),
+        "persistent": render_persistent_sharded(scene, mesh, seed=3, spp=SMALL_SPP,
+                                                max_depth=SMALL_DEPTH, rr_depth=2),
+    }
+    loss, g = sharded_replay_grad(scene, diff, target, 3, mesh, n_lanes=512, spp=SMALL_SPP,
+                                  max_depth=SMALL_DEPTH, rr_depth=2, ray_end=n, chunk=256)
+    out["replay_loss"] = loss
+    out.update({f"replay:{k}": v for k, v in g.items()})
+    loss, g = sharded_grad_step(scene, diff, target, 3, mesh,
+                                PathIntegrator(max_depth=SMALL_DEPTH, rr_depth=2,
+                                               differentiable=True))
+    out["step_loss"] = loss
+    out.update({f"step:{k}": v for k, v in g.items()})
+    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+
+def phase_sharded(scene, integrator, card, dev, render_img, persistent_img, replay_grads):
+    """Phase 19a: a one-rank NCCL group in this process; the four sharded
+    entry points on the stand-in at 1280x720 against phases 4 and 12, then
+    on the small scene as 19b's reference.  Returns ({entry point: K1
+    launches}, max abs err of the holds, the small scene's results)."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from mitsuba3_experiments_tpu_torch.integrators import PathIntegrator, persistent
+    from mitsuba3_experiments_tpu_torch.parallel import (
+        make_mesh, render_persistent_sharded, render_sharded, sharded_grad_step,
+        sharded_replay_grad)
+    from mitsuba3_experiments_tpu_torch.scene import params
+
+    w, h = RES
+    n = w * h * SPP
+    target = torch.as_tensor(persistent_img, device=dev)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=rendezvous("rendezvous_19a"), rank=0,
+                            world_size=1, timeout=timedelta(seconds=120))
+    launches = {}
+    try:
+        mesh = make_mesh(1)
+        t0 = time.perf_counter()
+        ping = torch.ones(1, device=dev)
+        dist.all_reduce(ping, group=mesh.get_group("dp"))
+        torch.cuda.synchronize()
+        print(f"[19a] one-rank NCCL group: the first all-reduce (the communicator's set-up) "
+              f"{time.perf_counter() - t0:.3f} s ({card})")
+        img, launches["render_sharded"], err = sharded_stage(
+            "19a render_sharded", lambda: render_sharded(scene, integrator, mesh, spp=SPP,
+                                                         rfilter="tent"), card, n, hold=True)
+        images_equal("19a render_sharded against phase 4's render", img.cpu().numpy(),
+                     render_img)
+        img, launches["render_sharded chunk"], _ = sharded_stage(
+            f"19a render_sharded chunk {SHARD_CHUNK}",
+            lambda: render_sharded(scene, integrator, mesh, spp=SPP, rfilter="tent",
+                                   chunk=SHARD_CHUNK), card, n)
+        images_equal("19a render_sharded padded against phase 4's render", img.cpu().numpy(),
+                     render_img)
+        img, launches["render_persistent_sharded"], _ = sharded_stage(
+            "19a render_persistent_sharded",
+            lambda: render_persistent_sharded(scene, mesh, seed=0, spp=SPP, max_depth=MAX_DEPTH,
+                                              rr_depth=4, rfilter="tent"), card, n)
+        images_equal("19a render_persistent_sharded against phase 12's render_persistent",
+                     img.cpu().numpy(), persistent_img)
+        del img
+        diff = {k: params.traverse(scene)[k] for k in DIFF_KEYS}
+        (loss, g), launches["sharded_replay_grad"], _ = sharded_stage(
+            f"19a sharded_replay_grad spp {SPP} depth {MAX_DEPTH}, chunks of {REPLAY_CHUNK}",
+            lambda: sharded_replay_grad(scene, diff, target, 0, mesh, n_lanes=persistent.N_LANES,
+                                        spp=SPP, max_depth=MAX_DEPTH, rr_depth=4, rfilter="box",
+                                        ray_end=n, chunk=REPLAY_CHUNK), card, n)
+        print(f"[19a sharded_replay_grad] loss {float(loss):.6e}")
+        grads_equal("19a sharded_replay_grad against phase 12's replay_grads",
+                    {k: v.cpu().numpy() for k, v in g.items()},
+                    {k: v.cpu().numpy() for k, v in replay_grads.items()}, 1e-3, 1e-4)
+        (loss, g), launches["sharded_grad_step"], _ = sharded_stage(
+            f"19a sharded_grad_step {w}x{h} spp_per_pass 1 depth {MAX_DEPTH}",
+            lambda: sharded_grad_step(scene, diff, target, 0, mesh,
+                                      PathIntegrator(max_depth=MAX_DEPTH, rr_depth=4,
+                                                     differentiable=True)), card, w * h)
+        print(f"[19a sharded_grad_step] loss {float(loss):.6e}")
+        check(bool(torch.isfinite(loss)), "19a sharded_grad_step: the loss is not finite")
+        for k, v in g.items():
+            print(f"[19a sharded_grad_step] d loss / d {k}: max |g| {float(v.abs().max()):.6e}")
+            check(bool(torch.isfinite(v).all()) and float(v.abs().max()) > 0.0,
+                  f"19a sharded_grad_step: the gradient of {k} is not finite or is zero")
+        del g, diff
+        small = small_sharded(mesh, dev)
+    finally:
+        dist.destroy_process_group()
+    return launches, err, small
+
+
+def rank_19b(rank, init, out):
+    """One of 19b's two ranks: a gloo group of two processes, both on
+    cuda:0, the small scene's four entry points, its results in
+    out/rank<rank>.npz."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from mitsuba3_experiments_tpu_torch.intersect import bvh_cuda, bvh_torch
+    from mitsuba3_experiments_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=2,
+                            timeout=timedelta(seconds=60))
+    try:
+        res = small_sharded(make_mesh(2), dev)
+        res["k1"] = np.array(bvh_cuda.launches)
+        res["plain_traverse"] = np.array(bvh_torch.calls)
+        np.savez(os.path.join(out, f"rank{rank}.npz"), **res)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_two_ranks(card, world1):
+    """Phase 19b: two spawned ranks on the one card in a gloo group; every
+    entry point's result equal to the world-1 run's (`world1`): images at
+    rtol 1e-4 / atol 1e-5, losses at rtol 1e-4, gradients at rtol 2e-3 /
+    atol 2e-4 max|g|; both ranks return the same.  Returns the ranks' K1
+    launches."""
+    import multiprocessing
+
+    out = os.path.join("out", "19b")
+    os.makedirs(out, exist_ok=True)
+    for r in range(2):
+        if os.path.exists(os.path.join(out, f"rank{r}.npz")):
+            os.remove(os.path.join(out, f"rank{r}.npz"))
+    ctx = multiprocessing.get_context("spawn")
+    init = rendezvous("rendezvous_19b")
+    procs = [ctx.Process(target=rank_19b, args=(r, init, out)) for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = t0 + JOIN_S
+    for p in procs:
+        p.join(timeout=max(deadline - time.perf_counter(), 0.0))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    secs = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    check(codes == [0, 0], f"19b: the ranks exited with {codes} (a kill: a hang past {JOIN_S} s)")
+    res = [dict(np.load(os.path.join(out, f"rank{r}.npz"))) for r in range(2)]
+    k1 = [int(r["k1"]) for r in res]
+    print(f"[19b] two gloo ranks on cuda:0, 32x32 cornell+sphere: {secs:.1f} s with start-up, "
+          f"K1 launches {k1}, plain traversals {[int(r['plain_traverse']) for r in res]} "
+          f"({card})")
+    check(min(k1) > 0 and all(int(r["plain_traverse"]) == 0 for r in res),
+          "19b: a rank did not run its ray queries on K1 alone")
+    for k, v in res[0].items():
+        if k not in ("k1", "plain_traverse"):
+            check(bool(np.array_equal(res[1][k], v)), f"19b: the ranks' {k} differ")
+    for k in SMALL_IMAGES:
+        images_equal(f"19b {k} against world 1", res[0][k], world1[k])
+    for name in ("replay", "step"):
+        got, ref = float(res[0][f"{name}_loss"]), float(world1[f"{name}_loss"])
+        print(f"[19b] {name} loss {got:.6e} against world 1's {ref:.6e}")
+        check(bool(np.isclose(got, ref, rtol=1e-4, atol=0.0)), f"19b: the {name} losses differ")
+        grads_equal(f"19b {name} gradients against world 1",
+                    {k: res[0][f"{name}:{k}"] for k in DIFF_KEYS},
+                    {k: world1[f"{name}:{k}"] for k in DIFF_KEYS}, 2e-3, 2e-4)
+    return sum(k1)
+
+
 def main() -> int:
     import torch
 
@@ -1923,7 +2218,7 @@ def main() -> int:
     k4_launches, err_k4, k4_ms, k4_plain_ms, k4_bound, k4_dev = phase_k4(dev, card)
 
     # ---- phase 12: production forward + fwd+bwd, depth 8 -------------------
-    target, prod, err_d = phase_production(scene, integrator, card)
+    target, prod, err_d, prod_grads = phase_production(scene, integrator, card)
 
     # ---- phase 13: the depth-65 companion ----------------------------------
     fwd_bwd(scene, target, 1, DEEP, card, "fwd+bwd d65")
@@ -1951,6 +2246,13 @@ def main() -> int:
     phase_pssmlt_card_vs_cpu(dev)
     print(f"[smoke] phases 17-18: {time.perf_counter() - t17:.1f} s ({card})")
 
+    # ---- phases 19a-19b: parallel/ on torch.distributed ----------------------
+    t19 = time.perf_counter()
+    sharded, err_i, small = phase_sharded(scene, integrator, card, dev, img_np,
+                                          target.cpu().numpy(), prod_grads)
+    k1_two_ranks = phase_two_ranks(card, small)
+    print(f"[smoke] phases 19a-19b: {time.perf_counter() - t19:.1f} s ({card})")
+
     k2_bound, k2_by = k2_least_ms(FIELD_ROWS, K2_SIZES)
     print(f"[K2] {FIELD_ROWS} rows: kernel at {k2_bound / k2_ms:.4f} of the bound, device time at "
           f"{k2_bound / k2_dev:.4f} of it")
@@ -1962,19 +2264,22 @@ def main() -> int:
           f"{k2_least_ms(nrc_rows, K2_SIZES)[0]:.4f} ms; launches: training {nrc_train['k2']}, "
           f"render {nrc_render['k2']}")
     k1_launches = (prod["k1"] + k1_diff + k1_trunc + nrc_train["k1"] + nrc_render["k1"]
-                   + sum(zoo.values()) + sum(mcmc.values()))
+                   + sum(zoo.values()) + sum(mcmc.values()) + sum(sharded.values())
+                   + k1_two_ranks)
     k2_launches = train["k2"] + nrc_train["k2"] + nrc_render["k2"]
     print(f"[smoke] K1 launches: fwd+bwd d8 {prod['k1']}, differentiable render {k1_diff}, "
           f"trunc record {k1_trunc}, NRC training {nrc_train['k1']}, NRC render "
           f"{nrc_render['k1']}, zoo " + ", ".join(f"{k} {v}" for k, v in zoo.items())
           + ", pssmlt " + ", ".join(f"{k} {v}" for k, v in mcmc.items())
+          + ", 19a " + ", ".join(f"{k} {v}" for k, v in sharded.items())
+          + f", 19b (two ranks) {k1_two_ranks}"
           + f"; K2 launches: nerad training {train['k2']}, NRC training "
           f"{nrc_train['k2']}, NRC render {nrc_render['k2']}")
     print(f"[smoke] total {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": [
         {"name": "bvh8_traverse", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
          "launches": k1_launches,
-         "max_abs_err": max(err_a, err_b, err_c, err_d, err_e, err_f, err_g, err_h),
+         "max_abs_err": max(err_a, err_b, err_c, err_d, err_e, err_f, err_g, err_h, err_i),
          "ms": k_main_ms, "plain_ms": p_main_ms, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None, "device_ms": per_ms[0]},
         {"name": "fused_mlp", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,

@@ -76,17 +76,23 @@ def render_pass(scene: Scene, integrator, seed, pass_idx, film,
     return filmlib.put(film, pos, L, active=in_range, rfilter=rfilter)
 
 
+def split_passes(w: int, h: int, spp: int, spp_per_pass: int | None = None):
+    """(samples per pass, passes) of a render of `spp` samples: by default
+    as many per pass as keep the wavefront around <= 2^21 lanes, lowered
+    to a divisor of spp."""
+    if spp_per_pass is None:
+        spp_per_pass = max(1, min(spp, (1 << 21) // max(w * h, 1)))
+    while spp % spp_per_pass:
+        spp_per_pass -= 1
+    return spp_per_pass, spp // spp_per_pass
+
+
 def render(scene: Scene, integrator, seed: int = 0, spp: int = 16,
            rfilter: str | None = None, spp_per_pass: int | None = None,
            chunk: int | None = None):
     """Full render -> (H, W, 3) image on the scene's device."""
     w, h = scene.camera.resolution
-    if spp_per_pass is None:
-        # keep the wavefront around <= 2^21 lanes
-        spp_per_pass = max(1, min(spp, (1 << 21) // max(w * h, 1)))
-    while spp % spp_per_pass:
-        spp_per_pass -= 1
-    n_passes = spp // spp_per_pass
+    spp_per_pass, n_passes = split_passes(w, h, spp, spp_per_pass)
     rfilter = rfilter or "box"
     n = w * h * spp_per_pass
 

@@ -1,7 +1,8 @@
 """Host-side image I/O (counterpart of
 ``mitsuba3_experiments_tpu.utils.image``, numpy only): a minimal EXR writer
 and reader (uncompressed fp32 scanlines), an 8-bit PNG writer (zlib), and
-PNG/JPG reading through PIL where it is installed.
+PNG/JPG reading through PIL where it is installed; the images' MSE and
+relative MSE.
 """
 from __future__ import annotations
 
@@ -155,3 +156,20 @@ def read_exr(path: str) -> np.ndarray:
     g = out.get("G", r)
     b = out.get("B", r)
     return np.stack([r, g, b], axis=-1)
+
+
+# ------------------------------- error metrics ------------------------------
+
+def mse(a, b) -> float:
+    """Mean squared error of two images (array-likes on the host), in
+    float32."""
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    return float(np.mean((a - b) ** 2))
+
+
+def relative_mse(a, ref) -> float:
+    """Mean of (a - ref)^2 / (ref^2 + 0.01), in float32."""
+    a = np.asarray(a, np.float32)
+    ref = np.asarray(ref, np.float32)
+    return float(np.mean((a - ref) ** 2 / (ref * ref + 1e-2)))

@@ -761,3 +761,67 @@ def test_flow_log_eval_card_matches_cpu(card, coupling):
         got = nf.flow_log_eval(card_params, cfg, x.to(card)).cpu()
     torch.testing.assert_close(got, ref, rtol=2e-2, atol=2e-2)
     assert float(torch.isclose(got, ref, rtol=1e-5, atol=1e-5).float().mean()) >= 0.9
+
+
+def test_sharded_entry_points_in_a_one_rank_nccl_group(card, tmp_path):
+    """parallel/ on CUDA tensors in a one-rank NCCL group: render_sharded
+    (padded chunks) and render_persistent_sharded equal the single-device
+    renders per pixel, sharded_replay_grad equals replay_render_grad, each
+    launching K1 and never the plain traversal."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from mitsuba3_experiments_tpu_torch.integrators import (
+        PathIntegrator, render, render_persistent, replay_render_grad)
+    from mitsuba3_experiments_tpu_torch.parallel import (
+        make_mesh, render_persistent_sharded, render_sharded, sharded_replay_grad)
+    from mitsuba3_experiments_tpu_torch.scene import cornell_box, params
+
+    box = load_dict(cornell_box(res=32, spp=1), device=card)[0]
+    integ = PathIntegrator(max_depth=3, rr_depth=2)
+    diff = {k: params.traverse(box)[k] for k in ("materials.base_color", "emitters.radiance")}
+    target = torch.rand((32, 32, 3), generator=torch.Generator().manual_seed(1)).to(card)
+    n = 32 * 32 * 2
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0,
+                            world_size=1, timeout=timedelta(seconds=60))
+    try:
+        mesh = make_mesh(1)
+        launches, calls = bvh_cuda.launches, bvh_torch.calls
+        img = render_sharded(box, integ, mesh, spp=2, seed=7, chunk=700)
+        pers = render_persistent_sharded(box, mesh, seed=3, spp=2, max_depth=3, rr_depth=2)
+        loss, g = sharded_replay_grad(box, diff, target, 4, mesh, n_lanes=512, spp=2,
+                                      max_depth=3, rr_depth=2, ray_end=n, chunk=256)
+        assert bvh_cuda.launches > launches and bvh_torch.calls == calls
+    finally:
+        dist.destroy_process_group()
+    torch.testing.assert_close(img, render(box, integ, spp=2, seed=7), rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(pers, render_persistent(box, seed=3, spp=2, max_depth=3,
+                                                       rr_depth=2), rtol=1e-4, atol=1e-5)
+    ref = replay_render_grad(box, diff, params.update, target, 4, 0, n, spp=2, max_depth=3,
+                             rr_depth=2)
+    assert torch.isfinite(loss)
+    for k, v in ref.items():
+        torch.testing.assert_close(g[k], v, rtol=2e-3, atol=2e-4 * float(v.abs().max()))
+
+
+def test_two_gloo_ranks_on_one_card(card, tmp_path):
+    """Two rank processes on cuda:0 in a gloo group (NCCL takes one rank a
+    card; tests/torch_parallel_ranks.py's render suite): every image equal
+    to the single-device render on the card, per pixel."""
+    import torch_parallel_ranks as ranks
+
+    from mitsuba3_experiments_tpu_torch.integrators import (
+        PathIntegrator, render, render_persistent)
+
+    res = ranks.collect(ranks.start("render", 2, str(tmp_path), device="cuda:0"), str(tmp_path))
+    box = load_dict(ranks.box_dict(32), device=card)[0]
+    fov = load_dict(ranks.box_dict(32, fov=15.0), device=card)[0]
+    integ = PathIntegrator(max_depth=ranks.DEPTH, rr_depth=ranks.RR)
+    refs = {"box": render(box, integ, spp=4, seed=5), "fov": render(fov, integ, spp=2, seed=7),
+            "persistent": render_persistent(box, seed=3, spp=2, max_depth=ranks.DEPTH,
+                                            rr_depth=ranks.RR)}
+    refs["fov_chunk"] = refs["fov"]
+    for r in res:
+        for k, ref in refs.items():
+            np.testing.assert_allclose(r[k], ref.cpu().numpy(), rtol=1e-4, atol=1e-5, err_msg=k)

@@ -39,7 +39,7 @@ def test_every_module_imports_without_jax():
                 "integrators.spectral", "integrators.bdpt", "integrators.sppm",
                 "integrators.restir", "integrators.pssmlt", "integrators.metropolis",
                 "models.normflow", "models.reparam", "utils.checkpoint", "utils.profile",
-                "validation", "validation.oracle"):
+                "validation", "validation.oracle", "parallel", "parallel.mesh"):
         assert f"{port.__name__}.{new}" in mods, new
     code = (
         "import importlib, sys\n"
@@ -65,22 +65,27 @@ def _imported_modules(path):
 
 
 def test_examples_import_no_jax():
-    """The port's example scripts (examples/torch_*.py) import neither jax
-    nor the JAX package, directly or through examples/_common.py; each
-    answers --help in a fresh interpreter with no jax loaded."""
+    """The port's example scripts (examples/torch_*.py) and
+    scripts/torch_nerad_fused_bench.py import neither jax nor the JAX
+    package, directly or through examples/_common.py; each answers --help
+    in a fresh interpreter with no jax loaded."""
     ex_dir = os.path.join(REPO, "examples")
     scripts = sorted(f for f in os.listdir(ex_dir) if f.startswith("torch_") and f.endswith(".py"))
     for new in ("torch_run_pssmlt.py", "torch_metropolis_eval.py", "torch_train_normflow.py",
-                "torch_train_reparam.py"):
+                "torch_train_reparam.py", "torch_dryrun_multichip.py", "torch_render_path.py",
+                "torch_invert_radiance.py", "torch_train_nerad.py", "torch_bdpt_sppm_eval.py",
+                "torch_restir_eval.py"):
         assert new in scripts, new
-    for name in scripts:
-        mods = _imported_modules(os.path.join(ex_dir, name))
+    paths = [os.path.join(ex_dir, n) for n in scripts]
+    paths.append(os.path.join(REPO, "scripts", "torch_nerad_fused_bench.py"))
+    for path in paths:
+        mods = _imported_modules(path)
         bad = sorted(n for n in mods if n.split(".")[0] in ("jax", "jaxlib", "_common",
                                                             "mitsuba3_experiments_tpu"))
-        assert not bad, (name, bad)
+        assert not bad, (path, bad)
     code = (
         "import runpy, sys\n"
-        f"for path in {[os.path.join(ex_dir, n) for n in scripts]!r}:\n"
+        f"for path in {paths!r}:\n"
         "    sys.argv = [path, '--help']\n"
         "    try:\n"
         "        runpy.run_path(path, run_name='__main__')\n"
@@ -92,7 +97,7 @@ def test_examples_import_no_jax():
         "sys.exit(1 if bad else 0)\n"
     )
     out = _run(code)
-    assert out.returncode == 0 and out.stdout.count("usage:") == len(scripts), (
+    assert out.returncode == 0 and out.stdout.count("usage:") == len(paths), (
         out.stdout + out.stderr)
 
 

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from mitsuba3_experiments_tpu.scene import load_dict as jax_load_dict
+from mitsuba3_experiments_tpu.utils import image as jax_image
 from mitsuba3_experiments_tpu.validation import render_oracle as jax_render_oracle
 from mitsuba3_experiments_tpu.validation import scene_to_numpy as jax_oracle_data
 from mitsuba3_experiments_tpu_torch import utils
@@ -76,6 +77,20 @@ def test_profile_helpers_run_on_cpu(tmp_path):
         work(x)
     names = {e.get("name") for e in json.load(open(trace_path))["traceEvents"]}
     assert "smoke_range" in names
+
+
+def test_image_errors_equal_jax():
+    """mse and relative_mse on seeded images (one with values near 0, where
+    the relative MSE's 0.01 floor matters) against the JAX package's."""
+    rng = np.random.default_rng(12)
+    a = rng.uniform(0.0, 2.0, (24, 16, 3)).astype(np.float32)
+    b = (a + rng.normal(0.0, 0.1, a.shape)).astype(np.float32)
+    b[:4] *= 1e-3
+    for ours, theirs in ((utils.mse, jax_image.mse), (utils.relative_mse, jax_image.relative_mse)):
+        got, ref = ours(b, a), theirs(b, a)
+        assert ref > 0
+        np.testing.assert_allclose(got, ref, rtol=1e-7)
+        np.testing.assert_allclose(ours(torch.from_numpy(b), a), ref, rtol=1e-7)
 
 
 def test_oracle_equals_jax_oracle():
