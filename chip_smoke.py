@@ -184,13 +184,30 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     (images rtol 1e-4 / atol 1e-5, losses rtol 1e-4, gradients rtol 2e-3 /
     atol 2e-4 max|g|), both ranks equal, K1 launched in each; a rank that
     fails or hangs fails the run.
+20. the flagship loader and inverse rendering on its scene.  20a: a
+    bedroom-class skeleton XML written from numpy (tests/
+    torch_bedroom_skeleton.py: the bedroom camera, a tent film, max_depth
+    65, FLAGSHIP_OBJ obj shapes behind LFS pointers, one of them ~75% of
+    the size total and one missing, an LFS-pointer bitmap, two area
+    emitters) through `scene.flagship.load_flagship` at 1280x720 and
+    FLAGSHIP_TRIS triangles into a fresh cache under out/, then again from
+    that cache: tables equal byte for byte; build and cache-read seconds;
+    render_pipelined(spp 4, depth 8, rr_depth 4, tent) finite and above 0,
+    K1 held against plain on its first closest-hit and any-hit launch
+    (as in phase 15); seconds, camera rays/s, K1 launches, peak memory.
+    20b: INVERT_STEPS Adam steps of scripts/torch_flagship_invert.py's
+    `invert_step` (record_full_pipelined + replay_grads, spp 4, depth 8,
+    chunks of 131,072) from its start point against its box-filtered
+    target: the last step's loss and radiance error below the first's;
+    each step's record and replay seconds and K1 launches.
 
 Each kernel's counts are set to 0 just before the path that runs it and
 read just after: K1's around the render of phase 4, the differentiable
 render and its backward (6b), the NRC training and render (8b), the
 production fwd+bwd of phase 12, the trunc record (13b), each phase of 15
-and 17a, 17b, each entry point of 19a and 19b's two ranks — the JSON line
-gives the sum of all but the first — K2's
+and 17a, 17b, each entry point of 19a and 19b's two ranks, the render of
+20a and each step of 20b — the JSON line gives the sum of all but the
+first — K2's
 from the training of phase 8 and the NRC training and render (8b), summed, K3's
 from the ops entry point of phase 9 (no path of the renderer or trainer
 scans: the CDFs are built on the host, as in the JAX package), K4's from
@@ -2040,6 +2057,135 @@ def phase_two_ranks(card, world1):
     return sum(k1)
 
 
+# ---- phase 20: the flagship loader, and inverse rendering on its scene ------
+
+FLAGSHIP_OBJ = 70           # + 2 area emitters: the bedroom's 72 shapes
+FLAGSHIP_TRIS = 2_000_000
+INVERT_STEPS = 3
+
+
+def load_by_path(rel):
+    """The repository file `rel` (a script or test helper) as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+    spec = importlib.util.spec_from_file_location(os.path.splitext(os.path.basename(rel))[0],
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_flagship(card, dev):
+    """Phases 20a-20b: a bedroom-class skeleton XML (tests/
+    torch_bedroom_skeleton.py) through load_flagship at 1280x720 and 2M
+    triangles, built then read back from its cache; render_pipelined held
+    against plain on its first K1 launches; then INVERT_STEPS Adam steps of
+    scripts/torch_flagship_invert.py's invert_step at depth MAX_DEPTH.
+    Returns (K1 launches, max abs err of the holds)."""
+    import shutil
+
+    import torch
+
+    from mitsuba3_experiments_tpu_torch.integrators import render_pipelined
+    from mitsuba3_experiments_tpu_torch.scene import flagship, scene_to_numpy
+
+    skeleton = load_by_path(os.path.join("tests", "torch_bedroom_skeleton.py"))
+    invert = load_by_path(os.path.join("scripts", "torch_flagship_invert.py"))
+    root = os.path.join("out", "flagship")
+    cache = os.path.join(root, "cache")
+    shutil.rmtree(root, ignore_errors=True)
+    xml = skeleton.write_skeleton(root, n_obj=FLAGSHIP_OBJ)
+    kw = dict(res=RES, spp=SPP, tri_budget=FLAGSHIP_TRIS, cache_dir=cache, xml_path=xml,
+              device=dev)
+    t0 = time.perf_counter()
+    scene, meta = flagship.load_flagship(**kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again, meta2 = flagship.load_flagship(**kw)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    files = os.listdir(cache)
+    check(len(files) == 1 and files[0].endswith(".npz"), f"20a: the cache holds {files}")
+    a, b = scene_to_numpy(scene), scene_to_numpy(again)
+    same = a.keys() == b.keys() and meta == meta2 and all(
+        (v.dtype == b[k].dtype and v.shape == b[k].shape and v.tobytes() == b[k].tobytes())
+        if isinstance(v, np.ndarray) else v == b[k] for k, v in a.items())
+    check(same, "20a: the scene read from the cache differs from the one built")
+    del again, a, b
+    rows = scene.bvh.unified.shape[0]
+    mb = os.path.getsize(os.path.join(cache, files[0])) / 1e6
+    print(f"[20a] load_flagship of a {FLAGSHIP_OBJ + 2}-shape skeleton at {RES[0]}x{RES[1]}: "
+          f"{scene.n_faces} triangles, {rows} BVH rows, "
+          f"{int(scene.materials.kind.shape[0])} materials; build {build_s:.2f} s, cache read "
+          f"{read_s:.2f} s ({mb:.1f} MB), tables equal byte for byte ({card})")
+    check(scene.n_faces > 0.9 * FLAGSHIP_TRIS, f"20a: only {scene.n_faces} triangles")
+    check(meta["integrator"].get("max_depth") == 65 and meta["rfilter"] == "tent",
+          f"20a: the XML's integrator and film did not come through: {meta}")
+
+    w, h = RES
+    out = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    made = k1_launches(lambda: out.append(render_pipelined(
+        scene, seed=0, spp=SPP, max_depth=MAX_DEPTH, rr_depth=4, rfilter="tent")),
+        first_only=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    img = out[0].cpu().numpy()
+    print(f"[20a] render_pipelined spp {SPP} depth {MAX_DEPTH} tent: {secs:.3f} s, "
+          f"{w * h * SPP / secs:.1f} camera rays/s, K1 launches {counts['k1']}, plain traversals "
+          f"{counts['plain_traverse']}, peak device memory {peak:.2f} GB ({card})")
+    print(f"[20a] image mean {img.mean():.6f} min {img.min():.6f} max {img.max():.6f}")
+    check(bool(np.isfinite(img).all()) and float(img.mean()) > 0.0,
+          "20a: the image is not finite or is black")
+    check(counts["k1"] > 0 and counts["plain_traverse"] == 0,
+          "20a: the render did not run on K1 alone")
+    first = {}
+    for launch in made:
+        first.setdefault(launch[1]["any_hit"], launch)
+    del made, out
+    check(set(first) == {False, True}, "20a: the render made no closest-hit or no any-hit launch")
+    err = max(hold_first_lanes(f"20a first {'any' if k else 'closest'} hit", first[k])
+              for k in (False, True))
+    del first
+    k1 = counts["k1"]
+
+    # 20b: the driver's own step, at the headline depth
+    target = render_pipelined(scene, seed=0, spp=SPP, max_depth=MAX_DEPTH, rr_depth=4,
+                              rfilter="box")
+    true_rad = scene.emitters.radiance.clone()
+    true_col = scene.materials.base_color.clone()
+    p = invert.start_params(scene)
+    opt = torch.optim.Adam(list(p.values()), lr=invert.LR)
+    rad0, col0 = invert.errors(p, true_rad, true_col)
+    print(f"[20b] start: rad_err {rad0:.4f} col_err {col0:.4f}")
+    curve = []
+    for it in range(INVERT_STEPS):
+        reset_counts()
+        row, _ = invert.invert_step(scene, p, opt, target, it, spp=SPP, depth=MAX_DEPTH,
+                                    chunk=REPLAY_CHUNK)
+        counts = read_counts()
+        rad, col = invert.errors(p, true_rad, true_col)
+        curve.append((row["loss"], rad))
+        k1 += counts["k1"]
+        print(f"[20b] step {it}: loss {row['loss']:.6e} rad_err {rad:.4f} col_err {col:.4f}; "
+              f"{row['s']:.3f} s (record {row['record_s']:.3f} s, replay {row['replay_s']:.3f} "
+              f"s), K1 launches {counts['k1']}, plain traversals {counts['plain_traverse']} "
+              f"({card})")
+        check(counts["k1"] > 0 and counts["plain_traverse"] == 0,
+              f"20b step {it}: the record did not run on K1 alone")
+        check(np.isfinite(row["loss"]) and np.isfinite(rad), f"20b step {it}: not finite")
+    check(curve[-1][0] < curve[0][0], f"20b: the loss did not fall: {curve}")
+    check(curve[-1][1] < curve[0][1] < rad0, f"20b: rad_err did not fall: {rad0}, {curve}")
+    return k1, err
+
+
 def main() -> int:
     import torch
 
@@ -2253,6 +2399,11 @@ def main() -> int:
     k1_two_ranks = phase_two_ranks(card, small)
     print(f"[smoke] phases 19a-19b: {time.perf_counter() - t19:.1f} s ({card})")
 
+    # ---- phases 20a-20b: the flagship loader, inverse rendering --------------
+    t20 = time.perf_counter()
+    k1_flagship, err_j = phase_flagship(card, dev)
+    print(f"[smoke] phases 20a-20b: {time.perf_counter() - t20:.1f} s ({card})")
+
     k2_bound, k2_by = k2_least_ms(FIELD_ROWS, K2_SIZES)
     print(f"[K2] {FIELD_ROWS} rows: kernel at {k2_bound / k2_ms:.4f} of the bound, device time at "
           f"{k2_bound / k2_dev:.4f} of it")
@@ -2265,21 +2416,22 @@ def main() -> int:
           f"render {nrc_render['k2']}")
     k1_launches = (prod["k1"] + k1_diff + k1_trunc + nrc_train["k1"] + nrc_render["k1"]
                    + sum(zoo.values()) + sum(mcmc.values()) + sum(sharded.values())
-                   + k1_two_ranks)
+                   + k1_two_ranks + k1_flagship)
     k2_launches = train["k2"] + nrc_train["k2"] + nrc_render["k2"]
     print(f"[smoke] K1 launches: fwd+bwd d8 {prod['k1']}, differentiable render {k1_diff}, "
           f"trunc record {k1_trunc}, NRC training {nrc_train['k1']}, NRC render "
           f"{nrc_render['k1']}, zoo " + ", ".join(f"{k} {v}" for k, v in zoo.items())
           + ", pssmlt " + ", ".join(f"{k} {v}" for k, v in mcmc.items())
           + ", 19a " + ", ".join(f"{k} {v}" for k, v in sharded.items())
-          + f", 19b (two ranks) {k1_two_ranks}"
+          + f", 19b (two ranks) {k1_two_ranks}, 20 (flagship render + invert) {k1_flagship}"
           + f"; K2 launches: nerad training {train['k2']}, NRC training "
           f"{nrc_train['k2']}, NRC render {nrc_render['k2']}")
     print(f"[smoke] total {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": [
         {"name": "bvh8_traverse", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
          "launches": k1_launches,
-         "max_abs_err": max(err_a, err_b, err_c, err_d, err_e, err_f, err_g, err_h, err_i),
+         "max_abs_err": max(err_a, err_b, err_c, err_d, err_e, err_f, err_g, err_h, err_i,
+                            err_j),
          "ms": k_main_ms, "plain_ms": p_main_ms, "bound_ms": k1_bound, "bound_by": k1_by,
          "library_ms": None, "device_ms": per_ms[0]},
         {"name": "fused_mlp", "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,

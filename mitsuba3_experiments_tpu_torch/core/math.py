@@ -13,6 +13,7 @@ import torch
 
 Float = torch.float32
 
+EPS = 1e-6
 RAY_EPS = 1e-4          # spawn-ray offset along the normal (shadow-acne guard)
 INF = float("inf")
 PI = 3.14159265358979323846
@@ -35,6 +36,10 @@ def dot(a, b):
     if a.shape[-1] == 3 and b.shape[-1] == 3:
         return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
     return torch.sum(a * b, dim=-1)
+
+
+def abs_dot(a, b):
+    return torch.abs(dot(a, b))
 
 
 def cross(a, b):
@@ -85,6 +90,10 @@ def to_int32(x):
     return torch.clamp(f.to(torch.int64), -(1 << 31), (1 << 31) - 1)
 
 
+def lerp(a, b, t):
+    return a + (b - a) * t
+
+
 def sign_not_zero(x):
     return torch.where(x >= 0.0, 1.0, -1.0)
 
@@ -128,6 +137,10 @@ def cos2_theta(v):
     return v[..., 2] * v[..., 2]
 
 
+def abs_cos_theta(v):
+    return torch.abs(v[..., 2])
+
+
 def sin2_theta(v):
     return torch.clamp(1.0 - cos2_theta(v), min=0.0)
 
@@ -138,6 +151,10 @@ def sin_theta(v):
 
 def tan2_theta(v):
     return safe_div(sin2_theta(v), cos2_theta(v), fill=INF)
+
+
+def tan_theta(v):
+    return safe_div(sin_theta(v), cos_theta(v), fill=INF)
 
 
 def phi(v):
@@ -169,6 +186,12 @@ def transform_point(m, p):
 def transform_vector(m, v):
     x, y, z = v[..., 0:1], v[..., 1:2], v[..., 2:3]
     return m[:3, 0] * x + m[:3, 1] * y + m[:3, 2] * z
+
+
+def transform_normal(m, n):
+    """Normals transform by the inverse-transpose of the upper 3x3."""
+    inv = torch.linalg.inv(m[..., :3, :3])
+    return torch.einsum("...ji,...j->...i", inv, n)
 
 
 # Host-side (numpy) matrix builders for scene dicts; identical to the JAX

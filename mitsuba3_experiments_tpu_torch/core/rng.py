@@ -89,3 +89,8 @@ class Sampler:
         """Decorrelated sampler for a side-channel (e.g. RR decisions)."""
         k0, _ = tea32(self.seed, (salt & MASK32) ^ 0xDEADBEEF)
         return dataclasses.replace(self, seed=k0)
+
+
+def seed_from_int(seed: int) -> int:
+    """A render seed from any Python int: its low 32 bits, as JAX's uint32."""
+    return int(seed) & MASK32

@@ -1,8 +1,7 @@
 """Whole-record operations on frozen dataclasses of tensors.
 
-Counterpart of ``mitsuba3_experiments_tpu.core.struct``: the helpers the
-port's modules call (Dr.Jit's whole-struct gather / select / zeros /
-repeat).  A record is a dataclass whose fields are tensors or records; the
+Counterpart of ``mitsuba3_experiments_tpu.core.struct``: Dr.Jit's
+whole-struct gather / scatter / select / zeros / tile / repeat.  A record is a dataclass whose fields are tensors or records; the
 operations map over its tensor leaves and rebuild it with the same type.
 Fields that are not tensors (ints, None) are carried from the first record.
 """
@@ -11,6 +10,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+
+def replace(obj, **kwargs):
+    return dataclasses.replace(obj, **kwargs)
 
 
 def tmap(fn, tree, *rest):
@@ -54,3 +57,34 @@ def trepeat(record, count: int):
     axis (torch.repeat_interleave, not Tensor.repeat, which would tile
     [a b c a b c])."""
     return tmap(lambda x: torch.repeat_interleave(x, count, dim=0), record)
+
+
+def tscatter_set(buf, value, idx):
+    """Functional scatter-write of records (dr.scatter on structs): new
+    tensors with buf's rows at `idx` set to value's; `buf` is unchanged,
+    as with JAX's ``.at[idx].set``."""
+    def put(b, v):
+        return b.index_put((torch.as_tensor(idx, device=b.device).long(),), v.to(b.dtype))
+    return tmap(put, buf, value)
+
+
+def tscatter_add(buf, value, idx):
+    """Functional scatter-add of records (``.at[idx].add``): repeated indices
+    accumulate; `buf` is unchanged."""
+    def add(b, v):
+        return b.index_put((torch.as_tensor(idx, device=b.device).long(),), v.to(b.dtype),
+                           accumulate=True)
+    return tmap(add, buf, value)
+
+
+def ttile(record, count: int):
+    """dr.tile: [a b c] -> [a b c a b c] along axis 0."""
+    return tmap(lambda x: x.repeat((count,) + (1,) * (x.dim() - 1)), record)
+
+
+def tslice(record, sl):
+    return tmap(lambda x: x[sl], record)
+
+
+def tconcat(records, axis: int = 0):
+    return tmap(lambda *xs: torch.cat(xs, dim=axis), *records)

@@ -58,6 +58,12 @@ def bsdf_flags(mats: MaterialTable, mat_id):
     return mats.flags[torch.clamp(mat_id, min=0).long()]
 
 
+def base_color(mats: MaterialTable, textures, si):
+    """Per-lane base colour, texture-resolved: a property fetched off the
+    lane's BSDF (the reference's dr.dispatch property read)."""
+    return _albedo(_gather_rows(mats, si.mat_id), textures, si.uv)
+
+
 def _albedo(row, textures, uv):
     base = row["base_color"]
     tex = eval_texture(textures, row["tex_id"], uv)

@@ -86,6 +86,21 @@ class BVHLayout:
 
 DEFAULT_LAYOUT = BVHLayout()
 
+# module-level aliases of the default layout, under the JAX package's names,
+# for code ported from its scripts.  Nothing in this package reads them: its
+# functions take a BVHLayout or read `bvh.layout`, whose fields may differ
+WIDTH = DEFAULT_LAYOUT.width
+LEAF_CAP = DEFAULT_LAYOUT.leaf_cap
+VERT_FLOATS = DEFAULT_LAYOUT.vert_floats
+FACE_OFF = DEFAULT_LAYOUT.face_off
+LEAF_ROW = DEFAULT_LAYOUT.leaf_row
+NODE_BASE = DEFAULT_LAYOUT.node_base
+NODE_ROW = DEFAULT_LAYOUT.node_row
+COLLAPSE = DEFAULT_LAYOUT.collapse
+SBVH = DEFAULT_LAYOUT.sbvh
+SBVH_ALPHA = DEFAULT_LAYOUT.sbvh_alpha
+STACK_DEPTH = DEFAULT_LAYOUT.stack
+
 
 def collapse_to_wide(lo, hi, left, right, first, count, prim_order,
                      tri_verts_flat, faces_global,

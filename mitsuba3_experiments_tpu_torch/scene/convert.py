@@ -6,12 +6,18 @@ A scene crosses between packages as a flat dict keyed by field path —
 static fields: ``"materials.kinds_present"`` (tuple), ``"camera.resolution"``
 (tuple) and ``"bvh.layout"`` (dict of BVHLayout fields, or None).  Any
 package whose Scene has the same field names can produce the dict, so both
-packages can compute over identical tables.
+packages can compute over identical tables.  `write_scene_npz` /
+`read_scene_npz` keep it on disk as one .npz (the static entries and the
+compiler's meta as a JSON string), for the flagship cache and for processes
+that share one compiled scene.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import typing
+import zipfile
 
 import numpy as np
 import torch
@@ -82,3 +88,29 @@ def scene_to_numpy(scene) -> dict:
 
     rec(scene, "")
     return out
+
+
+def write_scene_npz(path: str, scene, meta: dict) -> None:
+    """`scene`'s tables and `meta` (JSON-serializable) as one .npz at
+    `path`, written under a temporary name and renamed into place."""
+    flat = scene_to_numpy(scene)
+    arrays = {k: v for k, v in flat.items() if k not in _STATIC}
+    head = json.dumps({"static": {k: flat[k] for k in _STATIC}, "meta": meta})
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, __head__=np.array(head), **arrays)
+    os.replace(tmp, path)
+
+
+def read_scene_npz(path: str, device=None):
+    """(Scene on `device` (None: the card), meta) from `write_scene_npz`'s
+    file.  A file that does not load raises RuntimeError naming it."""
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            flat = {k: z[k] for k in z.files}
+        head = json.loads(str(flat.pop("__head__")))
+        flat.update(head["static"])
+        return scene_from_numpy(flat, device), head["meta"]
+    except (OSError, EOFError, ValueError, KeyError, TypeError, zipfile.BadZipFile) as e:
+        raise RuntimeError(f"scene file {path} could not be read ({e!r})") from e

@@ -1,22 +1,40 @@
-"""Bedroom-class stand-in scene, built from numpy alone.
+"""The flagship bedroom scene, and a bedroom-class stand-in built from numpy.
 
-The JAX package's flagship scene (``mitsuba3_experiments_tpu.scene.flagship``)
-reads the bedroom's scene XML, which is not part of the repository, and
-replaces its missing OBJ meshes with procedural blobs.  `standin_dict` builds
-a scene of the same class without any file: the same room shell, 72 blob
-meshes with the bedroom's triangle share (one mesh holds ~75% of the budget,
-as the carpet OBJ does), two area lights under the ceiling, and every BSDF
-type the compiler knows.  It returns a plain dict that both packages'
-``load_dict`` accept, so it serves as data for cross-checks and GPU runs.
+Counterpart of ``mitsuba3_experiments_tpu.scene.flagship``.  `bedroom_dict`
+reads the bedroom's scene XML (camera, emitters, BSDFs, the 72 shape records
+with their transforms) and replaces each OBJ that is a git-LFS pointer, or
+missing, with a procedural blob whose triangle budget follows the pointer's
+`size` line; `load_flagship` compiles it and caches the tables on disk.  The
+XML is not committed: by default it is read from `data/bedroom/scene.xml`
+inside the repository (git ignores `data/`), and `load_flagship` raises
+when the file is absent.
+
+`standin_dict` builds a scene of the same class without any file: the same
+room shell, 72 blob meshes with the bedroom's triangle share (one mesh holds
+~75% of the budget, as the carpet OBJ does), two area lights under the
+ceiling, and every BSDF type the compiler knows.  It returns a plain dict
+that both packages' ``load_dict`` accept, so it serves as data for
+cross-checks and GPU runs.
 """
 from __future__ import annotations
 
 import copy
+import hashlib
+import os
+import re
 
 import numpy as np
 
+from .. import resolve_device
 from ..core import math as cm
 from .mesh import HostMesh, sphere
+from .obj import is_lfs_pointer
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# where a user puts the bedroom's scene XML (and the files it names) inside
+# the repository; read at call time, so a caller may point it elsewhere
+REFERENCE_BEDROOM = os.path.join(_REPO, "data", "bedroom", "scene.xml")
+CACHE_DIR = os.path.join(_REPO, ".scene_cache")
 
 # the shell encloses the bedroom camera at (3.456, 1.212, 3.299); blobs stay
 # in the inner furniture box
@@ -59,6 +77,32 @@ def placeholder_mesh(seed: int, n_tris: int) -> HostMesh:
     return HostMesh(
         v.astype(np.float32), base.faces, None, base.uvs, flat=True
     )
+
+
+def _room_shell() -> dict:
+    """Floor, four walls and ceiling, so paths terminate indoors."""
+    lo, hi = _ROOM_LO, _ROOM_HI
+    cx, cy, cz = (lo + hi) / 2
+    sx, sy, sz = (hi - lo) / 2
+    T = cm.matmul4
+    walls = {
+        "floor": T(cm.translate([cx, lo[1], cz]), cm.rotate([1, 0, 0], -90), cm.scale_mat([sx, sz, 1])),
+        "ceilwall": T(cm.translate([cx, hi[1], cz]), cm.rotate([1, 0, 0], 90), cm.scale_mat([sx, sz, 1])),
+        "wall_zlo": T(cm.translate([cx, cy, lo[2]]), cm.scale_mat([sx, sy, 1])),
+        "wall_zhi": T(cm.translate([cx, cy, hi[2]]), cm.rotate([0, 1, 0], 180), cm.scale_mat([sx, sy, 1])),
+        "wall_xlo": T(cm.translate([lo[0], cy, cz]), cm.rotate([0, 1, 0], 90), cm.scale_mat([sz, sy, 1])),
+        "wall_xhi": T(cm.translate([hi[0], cy, cz]), cm.rotate([0, 1, 0], -90), cm.scale_mat([sz, sy, 1])),
+    }
+    return {
+        f"_shell_{name}": {
+            "type": "rectangle",
+            "to_world": tw,
+            # subdivide: room-sized triangles would blow up BVH node bounds
+            "subdiv": 16,
+            "bsdf": {"type": "diffuse", "reflectance": [0.65, 0.6, 0.55]},
+        }
+        for name, tw in walls.items()
+    }
 
 
 def _checker(c0, c1):
@@ -140,25 +184,155 @@ def standin_dict(res=(1280, 720), spp: int = 4, tri_budget: int = 2_000_000,
             "emitter": {"type": "area", "radiance": [16.0, 14.0, 11.0]},
         }
 
-    # room shell (floor + 4 walls + ceiling) so paths terminate indoors
-    lo, hi = _ROOM_LO, _ROOM_HI
-    cx, cy, cz = (lo + hi) / 2
-    sx, sy, sz = (hi - lo) / 2
-    T = cm.matmul4
-    walls = {
-        "floor": T(cm.translate([cx, lo[1], cz]), cm.rotate([1, 0, 0], -90), cm.scale_mat([sx, sz, 1])),
-        "ceilwall": T(cm.translate([cx, hi[1], cz]), cm.rotate([1, 0, 0], 90), cm.scale_mat([sx, sz, 1])),
-        "wall_zlo": T(cm.translate([cx, cy, lo[2]]), cm.scale_mat([sx, sy, 1])),
-        "wall_zhi": T(cm.translate([cx, cy, hi[2]]), cm.rotate([0, 1, 0], 180), cm.scale_mat([sx, sy, 1])),
-        "wall_xlo": T(cm.translate([lo[0], cy, cz]), cm.rotate([0, 1, 0], 90), cm.scale_mat([sz, sy, 1])),
-        "wall_xhi": T(cm.translate([hi[0], cy, cz]), cm.rotate([0, 1, 0], -90), cm.scale_mat([sz, sy, 1])),
-    }
-    for name, tw in walls.items():
-        d[f"_shell_{name}"] = {
-            "type": "rectangle",
-            "to_world": tw,
-            # subdivide: room-sized triangles would blow up BVH node bounds
-            "subdiv": 16,
-            "bsdf": {"type": "diffuse", "reflectance": [0.65, 0.6, 0.55]},
-        }
+    d.update(_room_shell())
     return d
+
+
+# ---- the bedroom from its scene XML --------------------------------------------
+
+def _lfs_size(path: str) -> int:
+    """The `size` line of a git-LFS pointer; 100,000 when the file has none
+    or cannot be read."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(200).decode(errors="replace")
+        mch = re.search(r"size (\d+)", head)
+        return int(mch.group(1)) if mch else 100_000
+    except OSError:
+        return 100_000
+
+
+def bedroom_dict(res=(1280, 720), spp: int = 64, tri_budget: int = 2_000_000,
+                 xml_path: str | None = None) -> dict:
+    """The flagship scene dict: the XML's skeleton (`xml_path`, None for
+    REFERENCE_BEDROOM) with a placeholder blob for each LFS-pointer or
+    missing OBJ, checkerboards for LFS-pointer bitmaps, and the room shell."""
+    from .xml import load_xml_dict
+
+    d = load_xml_dict(REFERENCE_BEDROOM if xml_path is None else xml_path)
+    if res is not None:
+        d["sensor"]["film"]["width"] = res[0]
+        d["sensor"]["film"]["height"] = res[1]
+        d["sensor"].setdefault("sampler", {})["sample_count"] = spp
+
+    # per-mesh triangle budgets from the LFS sizes
+    objs = [k for k, v in d.items() if isinstance(v, dict) and v.get("type") == "obj"]
+    sizes = {k: _lfs_size(d[k]["filename"]) for k in objs}
+    total = sum(sizes.values())
+    i = 0
+    for key in objs:
+        val = d[key]
+        if not is_lfs_pointer(val["filename"]):
+            continue  # real data present: use it
+        n_tris = max(64, int(tri_budget * sizes[key] / max(total, 1)))
+        hm = placeholder_mesh(1234 + i, n_tris)
+        i += 1
+        repl = {"type": "mesh", "vertices": hm.vertices, "faces": hm.faces, "uvs": hm.uvs}
+        for k in ("to_world", "bsdf", "emitter"):
+            if val.get(k) is not None:
+                repl[k] = val[k]
+        d[key] = repl
+
+    _strip_missing_textures(d)
+    d.update(_room_shell())
+    return d
+
+
+def _strip_missing_textures(d):
+    """Replaces every bitmap texture whose file is an LFS pointer (or
+    missing) with a checkerboard, in place."""
+    for v in list(d.values()):
+        if isinstance(v, dict):
+            if v.get("type") == "bitmap" and "filename" in v and is_lfs_pointer(v["filename"]):
+                v.clear()
+                v.update({"type": "checkerboard", "color0": [0.5, 0.45, 0.4],
+                          "color1": [0.3, 0.28, 0.25]})
+            else:
+                _strip_missing_textures(v)
+
+
+def _files(d):
+    """Every `filename` in a scene dict, in dict order."""
+    for v in d.values():
+        if isinstance(v, dict):
+            if "filename" in v:
+                yield v["filename"]
+            yield from _files(v)
+
+
+def _build_sources():
+    """The files whose code turns a scene dict into the cached tables: this
+    package's `scene/*.py` and the host library's C++ sources."""
+    from .native import SOURCES
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    return sorted(os.path.join(here, f) for f in os.listdir(here) if f.endswith(".py")) + list(
+        SOURCES)
+
+
+def cache_key(res, spp: int, tri_budget: int, xml_path: str) -> str:
+    """The cache file's name: the settings, the default BVH layout, and a
+    hash of the code that builds the tables (`_build_sources`), of the XML's
+    bytes and of the head and size of each file it names (a changed
+    pointer's `size` changes the meshes)."""
+    from .bvh8 import DEFAULT_LAYOUT as lay
+    from .xml import load_xml_dict
+
+    h = hashlib.sha256()
+    for src in _build_sources():
+        with open(src, "rb") as f:
+            h.update(f.read())
+    with open(xml_path, "rb") as f:
+        h.update(f.read())
+    for name in _files(load_xml_dict(xml_path)):
+        h.update(name.encode())
+        try:
+            with open(name, "rb") as f:
+                h.update(f"{os.fstat(f.fileno()).st_size}:".encode() + f.read(200))
+        except OSError:
+            h.update(b"missing")
+    sd = "auto" if lay.stack_depth is None else lay.stack_depth
+    return (f"torch_flagship_{res[0]}x{res[1]}_spp{spp}_t{tri_budget}_w{lay.width}"
+            f"_lc{lay.leaf_cap}_{lay.collapse}_sbvh{int(lay.sbvh)}a{lay.sbvh_alpha:g}_st{sd}"
+            f"_{h.hexdigest()[:16]}")
+
+
+def load_flagship(res=(1280, 720), spp: int = 64, tri_budget: int = 2_000_000,
+                  cache_dir: str | None = CACHE_DIR, xml_path: str | None = None,
+                  device=None):
+    """Compile the flagship scene -> (Scene, meta) on `device` (None: the
+    card).  The tables are cached as one .npz in `cache_dir` (None: no
+    cache), under `cache_key`; a cache file that exists but does not load
+    raises.  An absent XML raises FileNotFoundError; nothing falls back to
+    `standin_dict`."""
+    from .build import load_dict
+    from .convert import read_scene_npz, write_scene_npz
+
+    xml = REFERENCE_BEDROOM if xml_path is None else xml_path
+    if not os.path.isfile(xml):
+        raise FileNotFoundError(f"the flagship scene XML {xml} does not exist")
+    device = resolve_device(device)
+    path = None
+    if cache_dir:
+        path = os.path.join(cache_dir, cache_key(res, spp, tri_budget, xml) + ".npz")
+        if os.path.exists(path):
+            return read_scene_npz(path, device)
+    scene, meta = load_dict(bedroom_dict(res, spp, tri_budget, xml_path=xml), device=device)
+    if path is not None:
+        write_scene_npz(path, scene, meta)
+    return scene, meta
+
+
+def load_bedroom(kind: str, res=(1280, 720), spp: int = 4, tri_budget: int = 2_000_000,
+                 xml_path: str | None = None, cache_dir: str | None = CACHE_DIR, device=None):
+    """The drivers' scene: "standin" (`standin_dict`, compiled) or
+    "flagship" (`load_flagship` of `xml_path`, which raises when the XML is
+    absent).  Returns (Scene, meta)."""
+    from .build import load_dict
+
+    if kind == "flagship":
+        return load_flagship(res, spp, tri_budget, cache_dir=cache_dir, xml_path=xml_path,
+                             device=device)
+    if kind == "standin":
+        return load_dict(standin_dict(res=res, spp=spp, tri_budget=tri_budget), device=device)
+    raise ValueError(f"scene {kind!r}: 'standin' or 'flagship'")

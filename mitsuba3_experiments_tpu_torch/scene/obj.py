@@ -13,6 +13,17 @@ from .mesh import HostMesh, smooth_vertex_normals
 from .native import load_obj_native
 
 
+def is_lfs_pointer(path: str) -> bool:
+    """True when `path` holds a git-LFS pointer instead of the file's bytes,
+    or cannot be opened (a missing file has no bytes either)."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(64)
+        return head.startswith(b"version https://git-lfs")
+    except OSError:
+        return True
+
+
 def load_obj(path: str, face_normals: bool = False) -> HostMesh:
     """An OBJ file as a HostMesh: smooth vertex normals where the file has
     no vn records, none with `face_normals` (flat shading)."""

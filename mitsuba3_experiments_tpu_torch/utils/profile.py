@@ -12,13 +12,16 @@ cost analysis of a compiled function.  Here a call is run once under
     (``torch.profiler.record_function``);
   * `trace(path)`: writes a Chrome trace of the enclosed code;
   * `benchmark(fn, *args)`: wall-clock seconds per call, the device
-    synchronized around the timed loop.
+    synchronized around the timed loop;
+  * `device_label(device)`: the card's `nvidia-smi` name and power limit,
+    written beside every time a driver reports.
 """
 from __future__ import annotations
 
 import contextlib
 import json
 import os
+import subprocess
 import tempfile
 import time
 
@@ -26,6 +29,19 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_label(device) -> str:
+    """"cpu", or for a CUDA device the line `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` prints for it (a card set below its
+    peak power runs slower under load)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device.type
+    index = torch.cuda.current_device() if device.index is None else device.index
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+                          f"--id={index}"], capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip()
 
 
 def _activities():

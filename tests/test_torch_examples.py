@@ -1,10 +1,15 @@
 """The port's example drivers (examples/torch_*.py of the parallel slice,
-scripts/torch_nerad_fused_bench.py) run on the CPU at their smallest sizes.
+scripts/torch_nerad_fused_bench.py, and the reference-workload drivers
+scripts/torch_{flagship_fullspec,flagship_invert,nerad_fullrecipe,
+scaling_bench}.py) run on the CPU at their smallest sizes.
 
 Every case's process starts at once, one thread each, when the first case
 runs; each case then waits for its own (at most 120 s) and checks that it
 exited 0 and wrote its files, and that its JSON parses.
-examples/torch_dryrun_multichip.py runs under torchrun in a gloo world of 2.
+examples/torch_dryrun_multichip.py runs under torchrun in a gloo world of 2;
+scripts/torch_scaling_bench.py starts its own gloo worlds of 1 and 2 ranks
+on the synthetic bedroom skeleton of tests/torch_bedroom_skeleton.py
+(`{xml}`), its flagship cache in the case's own directory (`{out}`).
 """
 import json
 import os
@@ -12,6 +17,8 @@ import subprocess
 import sys
 
 import pytest
+
+import torch_bedroom_skeleton as skeleton
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TORCHRUN = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
@@ -39,23 +46,49 @@ CASES = {
                           ["torch_nerad_fused_bench.json"]),
     "dryrun_multichip": ([*TORCHRUN, "examples/torch_dryrun_multichip.py"],
                          ["torch_dryrun_multichip.json"]),
+    "flagship_fullspec": (["scripts/torch_flagship_fullspec.py", "2", "4", "--res", "16", "9",
+                           "--tri-budget", "5000"],
+                          ["torch_flagship_spp2_d4.exr", "torch_flagship_spp2_d4.png",
+                           "torch_flagship_spp2_d4.json"]),
+    "flagship_invert": (["scripts/torch_flagship_invert.py", "2", "4", "--res", "16", "9",
+                         "--tri-budget", "5000", "--chunk", "256"],
+                        ["torch_flagship_invert.json", "torch_flagship_invert_start.png",
+                         "torch_flagship_invert_final.png"]),
+    "nerad_fullrecipe": (["scripts/torch_nerad_fullrecipe.py", "12", "6", "2", "--res", "8"],
+                         ["torch_nerad_fullrecipe.json", "torch_nerad_fullrecipe_final.png",
+                          "torch_nerad_fullrecipe_ref.png"]),
+    "scaling_bench": (["scripts/torch_scaling_bench.py", "32", "2000", "--worlds", "1,2",
+                       "--scene", "flagship", "--xml", "{xml}", "--cache-dir", "{out}/cache"],
+                      ["torch_scaling_bench.json", "torch_scaling_scene.npz",
+                       "world1/rank0.json", "world2/rank1.json"]),
 }
 WAIT_S = 120
+ARTIFACTS = "artifacts/ before the runs"
+
+
+def _tree(root):
+    """{path: (size, mtime)} of every file under root."""
+    return {os.path.join(d, f): (os.stat(os.path.join(d, f)).st_size,
+                                 os.stat(os.path.join(d, f)).st_mtime_ns)
+            for d, _, files in os.walk(root) for f in files}
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    started = {}
+    xml = skeleton.write_skeleton(str(tmp_path_factory.mktemp("bedroom")), n_obj=10)
+    started = {ARTIFACTS: _tree(os.path.join(REPO, "artifacts"))}
     for name, (cmd, _) in CASES.items():
         out = tmp_path_factory.mktemp(name)
+        cmd = [a.format(xml=xml, out=out) for a in cmd]
         argv = cmd if cmd[0] == sys.executable else [sys.executable, *cmd]
         with open(out / "log.txt", "w") as log:
             started[name] = (subprocess.Popen([*argv, "--device", "cpu", "--out", str(out)],
                                               cwd=REPO, env=env, stdout=log,
                                               stderr=subprocess.STDOUT), out)
     yield started
-    for proc, _ in started.values():
+    for name in CASES:
+        proc = started[name][0]
         if proc.poll() is None:
             proc.kill()
             proc.wait()
@@ -76,3 +109,14 @@ def test_example_runs_on_the_cpu(runs, name):
         assert (out / f).is_file(), f"{name} did not write {f}\n{log[-3000:]}"
         if f.endswith(".json"):
             json.loads((out / f).read_text())
+
+
+def test_drivers_write_only_under_out(runs):
+    """The drivers leave artifacts/ (the JAX package's outputs) as it was:
+    no file added, removed or rewritten."""
+    for name in CASES:
+        try:
+            runs[name][0].wait(timeout=WAIT_S)
+        except subprocess.TimeoutExpired:
+            pass
+    assert _tree(os.path.join(REPO, "artifacts")) == runs[ARTIFACTS]

@@ -65,10 +65,11 @@ def _imported_modules(path):
 
 
 def test_examples_import_no_jax():
-    """The port's example scripts (examples/torch_*.py) and
-    scripts/torch_nerad_fused_bench.py import neither jax nor the JAX
-    package, directly or through examples/_common.py; each answers --help
-    in a fresh interpreter with no jax loaded."""
+    """The port's example scripts (examples/torch_*.py), its scripts
+    (scripts/torch_*.py: the reference-workload drivers among them) and the
+    skeleton writer tests/torch_bedroom_skeleton.py import neither jax nor
+    the JAX package, directly or through examples/_common.py; each script
+    answers --help in a fresh interpreter with no jax loaded."""
     ex_dir = os.path.join(REPO, "examples")
     scripts = sorted(f for f in os.listdir(ex_dir) if f.startswith("torch_") and f.endswith(".py"))
     for new in ("torch_run_pssmlt.py", "torch_metropolis_eval.py", "torch_train_normflow.py",
@@ -77,8 +78,10 @@ def test_examples_import_no_jax():
                 "torch_restir_eval.py"):
         assert new in scripts, new
     paths = [os.path.join(ex_dir, n) for n in scripts]
-    paths.append(os.path.join(REPO, "scripts", "torch_nerad_fused_bench.py"))
-    for path in paths:
+    drivers = ("torch_nerad_fused_bench.py", "torch_flagship_fullspec.py",
+               "torch_flagship_invert.py", "torch_nerad_fullrecipe.py", "torch_scaling_bench.py")
+    paths += [os.path.join(REPO, "scripts", n) for n in drivers]
+    for path in paths + [os.path.join(REPO, "tests", "torch_bedroom_skeleton.py")]:
         mods = _imported_modules(path)
         bad = sorted(n for n in mods if n.split(".")[0] in ("jax", "jaxlib", "_common",
                                                             "mitsuba3_experiments_tpu"))

@@ -1,7 +1,7 @@
 """The port's sharded gradients (parallel/) against the JAX package, on the
 CPU.
 
-Worlds of 4 and 2 gloo ranks (tests/torch_parallel_ranks.py) run the
+Worlds of 4, 3 and 2 gloo ranks (tests/torch_parallel_ranks.py) run the
 gradient suite once each on cornell_box(res=16), spp 2, depth 3, rr_depth 2,
 against a seeded target, while this process computes the references with
 the JAX package:
@@ -16,8 +16,14 @@ the JAX package:
     loss and gradient.
 
 Gradients within rtol 2e-3 / atol 2e-4 max|g|, losses within rtol 1e-4; the
-gradients of the two worlds equal each other within the same bounds, and
-every rank returns the same values.
+gradients of every world equal the first's within the same bounds, and
+every rank returns the same values.  The world of 3 splits unevenly: 512
+rays give its last rank a short slice, and `sharded_grad_step`'s 256 lanes
+leave its last rank short as well, so the port's gate of padded lanes is
+held on the gradient entry points against JAX's 4-device references.  Last,
+sharded_grad_step on the 2x2 Cornell box (4 lanes, so the last rank of
+the world of 3 has none) against JAX's sharded_grad_step on a mesh of one
+device.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -33,7 +39,7 @@ from mitsuba3_experiments_tpu.scene import update as jax_update
 
 import torch_parallel_ranks as ranks
 
-WORLDS = (4, 2)
+WORLDS = (4, 3, 2)
 RES, SPP, SEED = ranks.GRAD_RES, ranks.GRAD_SPP, 4
 
 
@@ -76,7 +82,16 @@ def jax_refs():
     loss, step = jax_grad_step(box, params, target, jnp.uint32(0), jax_make_mesh(4),
                                JPathIntegrator(max_depth=ranks.DEPTH, rr_depth=ranks.RR,
                                                differentiable=True), spp_per_pass=1)
+    tiny = jax_load_dict(ranks.box_dict(ranks.TINY_RES))[0]
+    tiny_loss, tiny_step = jax_grad_step(
+        tiny, {"materials.base_color": tiny.materials.base_color,
+               "emitters.radiance": tiny.emitters.radiance},
+        jnp.asarray(ranks.grad_target(ranks.TINY_RES)), jnp.uint32(0), jax_make_mesh(1),
+        JPathIntegrator(max_depth=ranks.DEPTH, rr_depth=ranks.RR, differentiable=True),
+        spp_per_pass=1)
     return {
+        "tiny_step": {k: np.asarray(v) for k, v in tiny_step.items()},
+        "tiny_step_loss": float(tiny_loss),
         "replay": {k: np.asarray(v) for k, v in replay.items()},
         "replay_loss": float(((fwd - ranks.grad_target()) ** 2).sum()),
         "step": {k: np.asarray(v) for k, v in step.items()},
@@ -105,11 +120,24 @@ def test_sharded_grad_step_equals_jax(worlds, jax_refs, world):
         assert_grads_close(res[f"step:{k}"], ref, k)
 
 
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_grad_step_with_an_idle_rank_equals_jax(worlds, jax_refs, world):
+    res = worlds(world)[0]
+    np.testing.assert_allclose(float(res["tiny_step_loss"]), jax_refs["tiny_step_loss"],
+                               rtol=1e-4)
+    for k in ranks.DIFF_KEYS:
+        ref = jax_refs["tiny_step"][k]
+        assert np.abs(ref).max() > 0
+        assert_grads_close(res[f"tiny_step:{k}"], ref, k)
+
+
 def test_gradients_do_not_depend_on_the_world_size(worlds):
-    a, b = worlds(WORLDS[0])[0], worlds(WORLDS[1])[0]
-    for name in ("replay", "replay_chunked", "step"):
-        for k in ranks.DIFF_KEYS:
-            assert_grads_close(b[f"{name}:{k}"], a[f"{name}:{k}"], f"{name}:{k}")
+    a = worlds(WORLDS[0])[0]
+    for w in WORLDS[1:]:
+        b = worlds(w)[0]
+        for name in ("replay", "replay_chunked", "step", "tiny_step"):
+            for k in ranks.DIFF_KEYS:
+                assert_grads_close(b[f"{name}:{k}"], a[f"{name}:{k}"], f"world {w} {name}:{k}")
 
 
 @pytest.mark.parametrize("world", WORLDS)

@@ -13,7 +13,9 @@ Suites (the scenes and settings of tests/test_torch_parallel_*.py):
           48 lanes (padded), render_persistent_sharded;
   grads   cornell_box(res=16), spp 2, depth 3, rr_depth 2, against a
           seeded target: sharded_replay_grad with a lane per ray and with
-          fewer lanes than rays and chunks, sharded_grad_step.
+          fewer lanes than rays and chunks, sharded_grad_step; then
+          sharded_grad_step on cornell_box(res=TINY_RES), whose 4 lanes
+          leave the last rank of a world of 3 without a lane.
 
 `start`, `collect` and `stop` run a world of these processes for a test.  Imports
 neither jax nor the JAX package.
@@ -42,6 +44,7 @@ from mitsuba3_experiments_tpu_torch.scene import cornell_box, load_dict  # noqa:
 
 DEPTH, RR = 3, 2
 GRAD_RES, GRAD_SPP = 16, 2
+TINY_RES = 2
 DIFF_KEYS = ("materials.base_color", "emitters.radiance")
 
 
@@ -73,8 +76,7 @@ def suite_render(mesh, device) -> dict:
 def suite_grads(mesh, device) -> dict:
     box = load_dict(box_dict(GRAD_RES), device=device)[0]
     target = torch.as_tensor(grad_target(), device=device)
-    params = {"materials.base_color": box.materials.base_color,
-              "emitters.radiance": box.emitters.radiance}
+    params = params_of(box)
     ndev = mesh.size()
     n = GRAD_RES * GRAD_RES * GRAD_SPP
     per = -(-n // ndev)
@@ -90,7 +92,18 @@ def suite_grads(mesh, device) -> dict:
                                 PathIntegrator(max_depth=DEPTH, rr_depth=RR, differentiable=True))
     out["step_loss"] = loss
     out.update({f"step:{k}": g[k] for k in DIFF_KEYS})
+    tiny = load_dict(box_dict(TINY_RES), device=device)[0]
+    loss, g = sharded_grad_step(tiny, {k: params_of(tiny)[k] for k in DIFF_KEYS},
+                                torch.as_tensor(grad_target(TINY_RES), device=device), 0, mesh,
+                                PathIntegrator(max_depth=DEPTH, rr_depth=RR, differentiable=True))
+    out["tiny_step_loss"] = loss
+    out.update({f"tiny_step:{k}": g[k] for k in DIFF_KEYS})
     return out
+
+
+def params_of(scene) -> dict:
+    return {"materials.base_color": scene.materials.base_color,
+            "emitters.radiance": scene.emitters.radiance}
 
 
 SUITES = {"render": suite_render, "grads": suite_grads}
