@@ -200,14 +200,21 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     chunks of 131,072) from its start point against its box-filtered
     target: the last step's loss and radiance error below the first's;
     each step's record and replay seconds and K1 launches.
+21. bench_torch.py, the port's benchmark, in a subprocess twice: the small
+    lockstep rung (BENCH_SMALL=1) and the headline (1280x720, spp 4, depth
+    8, BENCH_SKIP_D65=1).  Each must exit 0 with its JSON line last: a
+    finite value above 0, extra.device the card's name, and on its "#"
+    lines K1 launched and no plain traversal; the headline's fwd+bwd rays/s
+    within +-30% of phase 12's in this run.  Its lines are printed.
 
 Each kernel's counts are set to 0 just before the path that runs it and
 read just after: K1's around the render of phase 4, the differentiable
 render and its backward (6b), the NRC training and render (8b), the
 production fwd+bwd of phase 12, the trunc record (13b), each phase of 15
 and 17a, 17b, each entry point of 19a and 19b's two ranks, the render of
-20a and each step of 20b — the JSON line gives the sum of all but the
-first — K2's
+20a, each step of 20b and the bench's timed calls in 21 (counted by the
+bench's own processes and read off its "#" lines) — the JSON line gives the
+sum of all but the first — K2's
 from the training of phase 8 and the NRC training and render (8b), summed, K3's
 from the ops entry point of phase 9 (no path of the renderer or trainer
 scans: the CDFs are built on the host, as in the JAX package), K4's from
@@ -969,7 +976,7 @@ def phase_production(scene, integrator, card):
     check(bool(close.all()), "render_persistent differs from render() beyond rtol 1e-4/atol 1e-5")
     del ref
 
-    rec, grads, counts, _ = fwd_bwd(scene, img, SPP, MAX_DEPTH, card, "fwd+bwd d8")
+    rec, grads, counts, fb_s = fwd_bwd(scene, img, SPP, MAX_DEPTH, card, "fwd+bwd d8")
     # the recorder's first batch (2^21 camera rays) again through the same
     # wavefront, every K1 launch kept: its record must equal the frame's, so
     # these launches are the counted run's own, on the same tensors; each is
@@ -1013,7 +1020,7 @@ def phase_production(scene, integrator, card):
     print(f"[fwd+bwd d8] first chunk: replayed radiance within rtol 1e-4 of the recorder's on "
           f"{close:.6f} of {REPLAY_CHUNK} rays, max abs err {float((L - ref_L).abs().max()):.3e}")
     check(close == 1.0, "the replayed radiance differs from the recorder's")
-    return img, counts, err_k1, grads
+    return img, counts, err_k1, grads, w * h * SPP / fb_s
 
 
 def phase_card_vs_cpu_replay(device):
@@ -2186,6 +2193,56 @@ def phase_flagship(card, dev):
     return k1, err
 
 
+# ---- phase 21: bench_torch.py, the port's benchmark ---------------------------
+
+BENCH_S = 600              # each bench_torch.py run's time limit
+BENCH_BAND = 0.3           # the headline's fwd+bwd rays/s against phase 12's
+BENCH_RUNS = (("21 small", {"BENCH_SMALL": "1"}), ("21 headline", {"BENCH_SKIP_D65": "1"}))
+
+
+def phase_bench(card, prod_rate):
+    """Phase 21: bench_torch.py's small rung, then its headline without the
+    depth-65 companion, each in a subprocess from the repository root.
+    Returns the K1 launches of their timed calls."""
+    import re
+
+    import torch
+
+    torch.cuda.empty_cache()
+    name = torch.cuda.get_device_name(0)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    k1 = 0
+    for label, env in BENCH_RUNS:
+        env = {**{k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}, **env}
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, os.path.join(repo, "bench_torch.py")], cwd=repo,
+                             env=env, capture_output=True, text=True, timeout=BENCH_S)
+        secs = time.perf_counter() - t0
+        lines = out.stdout.strip().splitlines()
+        for line in lines:
+            print(f"[{label}] {line}")
+        check(out.returncode == 0, f"{label}: bench_torch.py exited {out.returncode}: "
+              f"{out.stderr.strip()[-2000:]}")
+        res = json.loads(lines[-1])
+        value = res["value"]
+        check(np.isfinite(value) and value > 0, f"{label}: value {value}")
+        check(res["extra"]["device"] == name, f"{label}: extra.device {res['extra']['device']}")
+        counts = [tuple(int(x) for x in m.groups()) for m in
+                  (re.search(r"K1 launches (\d+), plain traversals (\d+)", line) for line in lines)
+                  if m]
+        check(len(counts) == 2 and all(c[0] > 0 and c[1] == 0 for c in counts),
+              f"{label}: K1 launches and plain traversals {counts}")
+        k1 += sum(c[0] for c in counts)
+        print(f"[{label}] {secs:.1f} s with start-up: fwd+bwd {value:.1f} rays/s, fwd "
+              f"{res['extra']['fwd_rays_per_s']:.1f} rays/s, K1 launches (fwd, fwd+bwd) "
+              f"{[c[0] for c in counts]} ({card})")
+    ratio = value / prod_rate
+    print(f"[21 headline] fwd+bwd {value:.1f} rays/s against phase 12's {prod_rate:.1f}: "
+          f"{ratio:.4f}")
+    check(abs(ratio - 1.0) <= BENCH_BAND, f"21: the bench's fwd+bwd is {ratio:.4f} of phase 12's")
+    return k1
+
+
 def main() -> int:
     import torch
 
@@ -2364,7 +2421,7 @@ def main() -> int:
     k4_launches, err_k4, k4_ms, k4_plain_ms, k4_bound, k4_dev = phase_k4(dev, card)
 
     # ---- phase 12: production forward + fwd+bwd, depth 8 -------------------
-    target, prod, err_d, prod_grads = phase_production(scene, integrator, card)
+    target, prod, err_d, prod_grads, prod_rate = phase_production(scene, integrator, card)
 
     # ---- phase 13: the depth-65 companion ----------------------------------
     fwd_bwd(scene, target, 1, DEEP, card, "fwd+bwd d65")
@@ -2404,6 +2461,11 @@ def main() -> int:
     k1_flagship, err_j = phase_flagship(card, dev)
     print(f"[smoke] phases 20a-20b: {time.perf_counter() - t20:.1f} s ({card})")
 
+    # ---- phase 21: bench_torch.py ------------------------------------------------
+    t21 = time.perf_counter()
+    k1_bench = phase_bench(card, prod_rate)
+    print(f"[smoke] phase 21: {time.perf_counter() - t21:.1f} s ({card})")
+
     k2_bound, k2_by = k2_least_ms(FIELD_ROWS, K2_SIZES)
     print(f"[K2] {FIELD_ROWS} rows: kernel at {k2_bound / k2_ms:.4f} of the bound, device time at "
           f"{k2_bound / k2_dev:.4f} of it")
@@ -2416,7 +2478,7 @@ def main() -> int:
           f"render {nrc_render['k2']}")
     k1_launches = (prod["k1"] + k1_diff + k1_trunc + nrc_train["k1"] + nrc_render["k1"]
                    + sum(zoo.values()) + sum(mcmc.values()) + sum(sharded.values())
-                   + k1_two_ranks + k1_flagship)
+                   + k1_two_ranks + k1_flagship + k1_bench)
     k2_launches = train["k2"] + nrc_train["k2"] + nrc_render["k2"]
     print(f"[smoke] K1 launches: fwd+bwd d8 {prod['k1']}, differentiable render {k1_diff}, "
           f"trunc record {k1_trunc}, NRC training {nrc_train['k1']}, NRC render "
@@ -2424,6 +2486,7 @@ def main() -> int:
           + ", pssmlt " + ", ".join(f"{k} {v}" for k, v in mcmc.items())
           + ", 19a " + ", ".join(f"{k} {v}" for k, v in sharded.items())
           + f", 19b (two ranks) {k1_two_ranks}, 20 (flagship render + invert) {k1_flagship}"
+          + f", 21 (bench_torch.py) {k1_bench}"
           + f"; K2 launches: nerad training {train['k2']}, NRC training "
           f"{nrc_train['k2']}, NRC render {nrc_render['k2']}")
     print(f"[smoke] total {time.perf_counter() - t_start:.1f} s ({card})")

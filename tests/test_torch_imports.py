@@ -124,3 +124,30 @@ def test_kernel_wrapper_imports_without_nvcc_or_triton():
     )
     out = _run(code, env=env)
     assert out.returncode == 0 and "ok" in out.stdout, out.stdout + out.stderr
+
+
+def test_bench_imports_no_jax():
+    """bench_torch.py (the port's counterpart of bench.py) imports neither
+    jax nor the JAX package: its module, and a --help run of it in a fresh
+    interpreter, which imports the port."""
+    path = os.path.join(REPO, "bench_torch.py")
+    mods = _imported_modules(path)
+    assert "mitsuba3_experiments_tpu_torch.integrators" in mods, mods
+    bad = sorted(n for n in mods if n.split(".")[0] in ("jax", "jaxlib",
+                                                        "mitsuba3_experiments_tpu"))
+    assert not bad, bad
+    code = (
+        "import runpy, sys\n"
+        f"sys.argv = [{path!r}, '--help']\n"
+        "try:\n"
+        f"    runpy.run_path({path!r}, run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code in (0, None), e.code\n"
+        "assert 'mitsuba3_experiments_tpu_torch.integrators' in sys.modules\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+        "             or m.split('.')[0] == 'mitsuba3_experiments_tpu')\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0 and "usage:" in out.stdout, out.stdout + out.stderr
