@@ -10,7 +10,8 @@ Prints ONE JSON line, {"metric", "value", "unit", "vs_baseline", "extra"}:
 `value` is the fwd+bwd camera rays/s of the headline rung; `extra` holds the
 forward's rays/s, the depth-65 companion's two rates and the device.  Lines
 before it start with "#": seconds, the record / replay split, peak device
-memory and K1's launches against plain traversals, per rung.
+memory, K1's launches against plain traversals and, for the replay, K5's
+forward + adjoint launches against plain replays, per rung.
 
 Rungs, each in a worker process of its own (`--worker JSON`), so that the
 depth-8 and depth-65 records never share one allocator:
@@ -53,7 +54,7 @@ import torch
 from mitsuba3_experiments_tpu_torch.integrators import (PathIntegrator, record_full,
                                                         record_full_pipelined, render_pass,
                                                         render_persistent, render_pipelined,
-                                                        replay_grads)
+                                                        replay, replay_cuda, replay_grads)
 from mitsuba3_experiments_tpu_torch.intersect import bvh_cuda, bvh_torch
 from mitsuba3_experiments_tpu_torch.render import film as filmlib
 from mitsuba3_experiments_tpu_torch.scene import flagship, params
@@ -194,16 +195,19 @@ def lockstep_grads(scene, cfg, target, seed):
 # ---- the worker ---------------------------------------------------------------
 
 def _timed(device, fn):
-    """(fn(), seconds, K1 launches and plain traversals during it), fn run
-    between two synchronizations with the wrappers' counts set to 0 just
-    before."""
+    """(fn(), seconds, K1 launches and plain traversals, K5 launches and
+    plain replays during it), fn run between two synchronizations with the
+    wrappers' counts set to 0 just before."""
     _sync(device)
     bvh_cuda.launches = bvh_torch.calls = 0
+    replay_cuda.forward_launches = replay_cuda.adjoint_launches = replay.plain_calls = 0
     t0 = time.perf_counter()
     out = fn()
     _sync(device)
-    return out, time.perf_counter() - t0, {"k1": bvh_cuda.launches,
-                                           "plain_traverse": bvh_torch.calls}
+    return out, time.perf_counter() - t0, {
+        "k1": bvh_cuda.launches, "plain_traverse": bvh_torch.calls,
+        "k5": (replay_cuda.forward_launches, replay_cuda.adjoint_launches),
+        "plain_replay": replay.plain_calls}
 
 
 def worker(cfg) -> dict:
@@ -250,8 +254,10 @@ def worker(cfg) -> dict:
                  f"{REPLAY_CHUNK}")
     peak = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None
     print(f"# fwd+bwd {bwd_rays / bwd_s:.1f} rays/s: {bwd_s:.3f} s ({split}), K1 launches "
-          f"{bwd_counts['k1']}, plain traversals {bwd_counts['plain_traverse']}, peak device "
-          f"memory " + ("not measured (cpu)" if peak is None else f"{peak:.2f} GB"), flush=True)
+          f"{bwd_counts['k1']}, plain traversals {bwd_counts['plain_traverse']}, K5 launches "
+          f"{bwd_counts['k5'][0]} + {bwd_counts['k5'][1]}, plain replays "
+          f"{bwd_counts['plain_replay']}, peak device memory "
+          + ("not measured (cpu)" if peak is None else f"{peak:.2f} GB"), flush=True)
     return {
         "fwd_rays_per_s": fwd_rays, "fwd_bwd_rays_per_s": bwd_rays / bwd_s,
         "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
@@ -283,15 +289,15 @@ def _card_line() -> str:
 
 def _history(path, key, device, res) -> float:
     """vs_baseline against the last run of `key` on `device`; records this
-    run in place of it."""
+    run's rates in place of it, rounded as the JSON line reports them."""
     hist = {}
     if os.path.exists(path):
         with open(path) as f:
             hist = json.load(f)
     prev = hist.get(key, {}).get(device, {})
     vs = res["fwd_bwd_rays_per_s"] / prev["fwd_bwd"] if prev.get("fwd_bwd") else 1.0
-    hist.setdefault(key, {})[device] = {"fwd": res["fwd_rays_per_s"],
-                                        "fwd_bwd": res["fwd_bwd_rays_per_s"]}
+    hist.setdefault(key, {})[device] = {"fwd": round(res["fwd_rays_per_s"], 1),
+                                        "fwd_bwd": round(res["fwd_bwd_rays_per_s"], 1)}
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         json.dump(hist, f, indent=1)

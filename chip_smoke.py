@@ -6,13 +6,14 @@
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
  1. needs a CUDA card; prints `nvidia-smi`'s name and power limit;
- 2. builds the four kernels, one nvcc each, and the host library (g++ on
-    native/*.cpp), all started together: K1 the BVH8 traversal in
+ 2. builds the five kernel sources, one nvcc each, and the host library
+    (g++ on native/*.cpp), all started together: K1 the BVH8 traversal in
     persistent warps (csrc/bvh_traverse.cu), K2 the fused MLP on bf16
     tensor cores (csrc/fused_mlp.cu), K3 the single-pass look-back scan
     (csrc/prefix_sum.cu), K4 the dependent gather chain in coalesced row
-    loads (csrc/gather_chain.cu); prints their ptxas lines (registers,
-    stack, spills) and each build's seconds;
+    loads (csrc/gather_chain.cu), K5 the path replay's forward and adjoint
+    (csrc/replay_path.cu); prints their ptxas lines (registers, stack,
+    spills) and each build's seconds;
  3. holds the kernel against its plain torch version on the same 65,536
     seeded rays, closest hit and any hit, into a 100k-triangle blob and the
     ~2M-triangle bedroom-class stand-in, both in the default spatial-split
@@ -113,6 +114,22 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
 13. the depth-65 companion (the reference bedroom's depth): 1280x720,
     spp 1, max_depth 65, replay_grads(mode="auto" -> sorted) fed the
     recorder's film: gradients finite and nonzero, seconds and rays/s;
+12c. K5 against its plain version (replay_radiance_plain with autograd) on
+    the same card tensors: the first 131,072 rows of phase 12's record
+    (depth 8) and the longest chunk of phase 13's as the sorted replay
+    orders it (131,072 rows, depth 65, its depth class): L within rtol 1e-4
+    / atol 1e-5 on at least 0.9999 of the rows, the gradients of sum(L dL)
+    (dL a seeded normal) with respect to the base colours and the emitter
+    radiances within rtol 1e-3 / atol 1e-4 max|g|, and K5's non-finite
+    rows the plain replay's; both kernels and the plain version timed with
+    CUDA events in turns (plain, kernel, kernel, plain), K5's bound from
+    the record entries and face rows its hit vertices read and their
+    operations, each vertex counted by its own material's kind (k5_work);
+    then one replay_grads_full chunk under torch.profiler:
+    its busy share, device operations and aten operators.  Phases 6b, 12,
+    13, 13b, 14, 19a, 20b and 21 replay on K5: each prints its K5 launches
+    (forward + adjoint) beside K1's and fails if it ran none or ran the
+    plain replay;
 13b. the truncated replay: the stand-in's camera at 32x18, spp 1, depth
     32, chunks of 64 rows — at least one chunk's longest path must be at
     most half the depth; replay_grads(mode="trunc"), which is the full
@@ -214,7 +231,8 @@ production fwd+bwd of phase 12, the trunc record (13b), each phase of 15
 and 17a, 17b, each entry point of 19a and 19b's two ranks, the render of
 20a, each step of 20b and the bench's timed calls in 21 (counted by the
 bench's own processes and read off its "#" lines) — the JSON line gives the
-sum of all but the first — K2's
+sum of all but the first — K5's from each phase that replays (6b, 12,
+13, 13b, 14, 19a, 20b, 21's headline), K2's
 from the training of phase 8 and the NRC training and render (8b), summed, K3's
 from the ops entry point of phase 9 (no path of the renderer or trainer
 scans: the CDFs are built on the host, as in the JAX package), K4's from
@@ -223,15 +241,16 @@ kernel's and its plain version's times at the main path's shapes: K1 on
 the render's camera batch (phase 5, which
 also prints the sum over the pass; phase 3 prints them at 65,536 rays), K2
 on 524,288 field rows (phase 7), K3 on the stand-in's 1,964,564 face areas
-(phase 9), K4 at 65,536 lanes x 64 steps (phase 11).  Beside them,
+(phase 9), K4 at 65,536 lanes x 64 steps (phase 11), K5 (forward +
+adjoint) on phase 12c's depth-8 chunk of 131,072 rows.  Beside them,
 `bound_ms`, the least time the card could take for the same work: the
 larger of the bytes the work must move (each input read once, each output
-written once; for K1 and K4 the distinct table rows this run's data
+written once; for K1, K4 and K5 the distinct table rows this run's data
 reaches) over 3.35 TB/s and its operations over the peak rate of their
 type (float32 67 TFLOP/s, bf16 989 TFLOP/s), and
 `library_ms`, one PyTorch call computing the same function where there is
-one (torch.cumsum for K3; none traverses a BVH, runs the whole MLP or
-walks a dependent chain).  `ms`, `plain_ms` and `library_ms` are CUDA
+one (torch.cumsum for K3; none traverses a BVH, runs the whole MLP,
+walks a dependent chain or replays a path).  `ms`, `plain_ms` and `library_ms` are CUDA
 events around calls made through the wrappers as a caller makes them (K1
 with its overflow check), so they include the host's launch time where a
 call is shorter than its launch.  `device_ms` is the kernel's own device
@@ -263,6 +282,8 @@ K3_REPLACES = "mitsuba3_experiments_tpu/ops/prefix_sum.py:26"
 K3_SOURCE = "mitsuba3_experiments_tpu_torch/csrc/prefix_sum.cu"
 K4_REPLACES = "scripts/pallas_gather_probe.py:79"
 K4_SOURCE = "mitsuba3_experiments_tpu_torch/csrc/gather_chain.cu"
+K5_REPLACES = "mitsuba3_experiments_tpu/integrators/replay.py:792"
+K5_SOURCE = "mitsuba3_experiments_tpu_torch/csrc/replay_path.cu"
 FIELD_ROWS = 524_288       # NeradTrainer() RHS lanes: 16,384 x 32
 K2_OTHER_ROWS = (16_384, 921_600)   # the nerad step's LHS batch, the 1280x720 nerad render
 K2_SIZES = (32, 64, 64, 64, 3)      # FieldConfig()'s MLP
@@ -284,6 +305,33 @@ ROW_BYTES = 88 * 4
 # triangle tests of about 60
 K1_OPS_INTERNAL_ROW = 8 * 27
 K1_OPS_LEAF_ROW = 8 * 60
+# K5's float32 operations, read off csrc/replay_path.h as it computes them
+# (an add, multiply, divide, compare, min/max, sqrt or transcendental counts
+# 1; a negation, an absolute value, a select and integer arithmetic 0, so a
+# counter-based draw counts 1 for its scale).  A hit vertex: the surface
+# interaction 105 and the emission gate 2, on an emitter's face 42 more for
+# its MIS and radiance.  A hit short of max_depth also shades: the area
+# NEE sample 75 and a compare a step of its binary search, six draws, two
+# frame changes, roulette and the next direction 55, the BSDF sample (its
+# kind's count below, and 22 of flip and gates), a textured albedo 48, a
+# mask's opacity lobe 28; where the light is not occluded and the material
+# smooth, the BSDF's evaluation at the NEE direction (its kind's count, and
+# 22 of flip, MIS and the sum; a mask 9 more).  The adjoint's derivative
+# terms (the suffix sums, the weight's and the value's albedo scales, the
+# table sums): 50 a shaded vertex, 85 more on a mask, 6 an emitter hit.
+# Kinds: diffuse, conductor, rough conductor, dielectric, rough dielectric,
+# plastic, rough plastic, mask (its nested kind's), null, principled.
+K5_OPS_SAMPLE = (23, 108, 223, 39, 290, 100, 340, 0, 0, 237)
+K5_OPS_EVAL = (11, 4, 222, 4, 184, 87, 231, 0, 4, 158)
+K5_OPS_HIT, K5_OPS_EMITTER_HIT, K5_OPS_SHADE = 107, 42, 130
+K5_OPS_TEXTURE, K5_OPS_MASK, K5_OPS_MASK_EVAL = 48, 28, 9
+K5_OPS_SAMPLE_COMMON, K5_OPS_EVAL_COMMON = 22, 22
+K5_OPS_DERIV, K5_OPS_DERIV_MASK, K5_OPS_DERIV_EMITTER = 50, 85, 6
+K5_FACE_BYTES = 29 * 4    # the face row's floats that _make_si reads
+K5_ENTRY_BYTES = 13       # a record entry: prim, u, v (4 bytes each) and occl (1)
+# K5's launches (forward, adjoint) on the main path, by phase: each phase
+# that replays adds its own (note_k5); phase 12c's comparisons are not counted
+K5_BY_PHASE: dict = {}
 
 
 def check(cond, msg):
@@ -433,13 +481,14 @@ def build_all():
     """Phase 2: one nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from mitsuba3_experiments_tpu_torch.integrators import replay_cuda
     from mitsuba3_experiments_tpu_torch.intersect import bvh_cuda
     from mitsuba3_experiments_tpu_torch.models import fused_mlp_cuda
     from mitsuba3_experiments_tpu_torch.ops import gather_probe_cuda, prefix_sum_cuda
     from mitsuba3_experiments_tpu_torch.scene import native
 
     libs = [bvh_cuda.LIBRARY, fused_mlp_cuda.LIBRARY, prefix_sum_cuda.LIBRARY,
-            gather_probe_cuda.LIBRARY, native.LIBRARY]
+            gather_probe_cuda.LIBRARY, replay_cuda.LIBRARY, native.LIBRARY]
     t0 = time.perf_counter()
 
     def build(lib):
@@ -570,11 +619,14 @@ def phase_k2_sizes(device, card, field, cfg):
 
 def counters():
     """(name, module, attribute) of every launch and plain-call count."""
+    from mitsuba3_experiments_tpu_torch.integrators import replay, replay_cuda
     from mitsuba3_experiments_tpu_torch.intersect import bvh_cuda, bvh_torch
     from mitsuba3_experiments_tpu_torch.models import fused_mlp, fused_mlp_cuda, mlp
     from mitsuba3_experiments_tpu_torch.ops import gather_probe, gather_probe_cuda, prefix_sum_cuda
 
     return (("k1", bvh_cuda, "launches"), ("plain_traverse", bvh_torch, "calls"),
+            ("k5_fwd", replay_cuda, "forward_launches"),
+            ("k5_adj", replay_cuda, "adjoint_launches"), ("plain_replay", replay, "plain_calls"),
             ("k2", fused_mlp_cuda, "launches"), ("plain_mlp", mlp, "calls"),
             ("recomputes", fused_mlp, "recomputes"), ("k3", prefix_sum_cuda, "launches"),
             ("plain_scan", prefix_sum_cuda, "plain_calls"),
@@ -584,6 +636,19 @@ def counters():
 def reset_counts():
     for _, mod, attr in counters():
         setattr(mod, attr, 0)
+
+
+def note_k5(label, counts, card):
+    """Checks that a phase's replay ran on K5 (its forward and its adjoint)
+    and never on the plain version; prints the launches beside K1's and
+    adds them to K5_BY_PHASE."""
+    f, a = counts["k5_fwd"], counts["k5_adj"]
+    print(f"[{label}] K5 launches {f} forward + {a} adjoint, plain replays "
+          f"{counts['plain_replay']}; K1 launches {counts['k1']} ({card})")
+    check(f > 0 and a > 0, f"{label}: the replay did not launch K5")
+    check(counts["plain_replay"] == 0, f"{label}: the replay ran its plain version")
+    old = K5_BY_PHASE.get(label, (0, 0))
+    K5_BY_PHASE[label] = (old[0] + f, old[1] + a)
 
 
 def read_counts():
@@ -938,6 +1003,7 @@ def fwd_bwd(scene, target, spp, depth, card, label):
         check(float(gk.abs().max()) > 0.0, f"{label}: gradient of {k} is zero")
     check(counts["k1"] > 0, f"{label}: the recorder did not launch K1")
     check(counts["plain_traverse"] == 0, f"{label}: the recorder ran the plain traversal")
+    note_k5(label, counts, card)
     return rec, g, counts, dt
 
 
@@ -1020,10 +1086,203 @@ def phase_production(scene, integrator, card):
     print(f"[fwd+bwd d8] first chunk: replayed radiance within rtol 1e-4 of the recorder's on "
           f"{close:.6f} of {REPLAY_CHUNK} rays, max abs err {float((L - ref_L).abs().max()):.3e}")
     check(close == 1.0, "the replayed radiance differs from the recorder's")
-    return img, counts, err_k1, grads, w * h * SPP / fb_s
+    return img, counts, err_k1, grads, w * h * SPP / fb_s, rec
 
 
-def phase_card_vs_cpu_replay(device):
+def k5_work(scene, sl, kw):
+    """The float32 operations and bytes that K5's two functions need on a
+    chunk, counted from its record: the forward walks each row's path once
+    for L; the adjoint walks it once more and adds the derivative terms.
+    Each vertex is charged its own material's kind (the nested one under a
+    mask), texture, emitter and NEE, as K5_OPS_* count them.  Each function
+    reads the record entries of the hit vertices, the face rows they hit
+    (distinct faces), the rows' ray indices when sorted and L or dL; the
+    adjoint writes the two tables.  The escapes (at most one a row), the
+    material, texture and emitter tables are left out, which only lowers
+    the bound.  Returns (hit vertices, distinct faces, operations, bytes)."""
+    import torch
+
+    rows, D = sl.prim.shape
+    steps = kw.get("n_steps") or D
+    ids = kw["idx"] if kw.get("idx") is not None else \
+        torch.arange(rows, device=sl.prim.device) + kw["idx0"]
+    prim = sl.prim[:, :steps]
+    hit = (prim >= 0) & (ids < kw["ray_end"])[:, None]
+    col = torch.nonzero(hit)[:, 1]
+    faces = prim[hit].long()
+    frow = scene.geometry.face_packed[faces]
+    mat = frow[:, 25].contiguous().view(torch.int32).long().clamp(min=0)
+    emitter = frow[:, 26].contiguous().view(torch.int32) >= 0
+    mats = scene.materials
+    is_mask = mats.kind[mat] == 7
+    eff = torch.where(is_mask, mats.nested_id[mat].long().clamp(min=0), mat)
+    kind = mats.kind[eff].long()
+    shaded = col + 1 < kw["max_depth"]
+    nee = shaded & ((mats.flags[mat] & 15) != 0) & ~sl.occl[:, :steps][hit]
+    textured = (mats.tex_id[eff] >= 0).long() + (is_mask & (mats.tex_id[mat] >= 0)).long()
+    ops_of = lambda t: torch.tensor(t, dtype=torch.int64, device=kind.device)[kind]  # noqa: E731
+    search = int(np.ceil(np.log2(scene.emitters.em_face_packed.shape[0] + 1)))
+    walk = K5_OPS_HIT + emitter * K5_OPS_EMITTER_HIT + shaded * (
+        K5_OPS_SHADE + search + K5_OPS_SAMPLE_COMMON + ops_of(K5_OPS_SAMPLE)
+        + textured * K5_OPS_TEXTURE + is_mask * K5_OPS_MASK) + nee * (
+        K5_OPS_EVAL_COMMON + ops_of(K5_OPS_EVAL) + is_mask * K5_OPS_MASK_EVAL)
+    deriv = shaded * (K5_OPS_DERIV + is_mask * K5_OPS_DERIV_MASK) + emitter * K5_OPS_DERIV_EMITTER
+    ops = int((2 * walk + deriv).sum())
+    hits, distinct = int(faces.numel()), int(torch.unique(faces).numel())
+    per_kernel = hits * K5_ENTRY_BYTES + distinct * K5_FACE_BYTES + rows * 12 \
+        + (rows * 8 if kw.get("idx") is not None else 0)
+    tables = (mats.base_color.shape[0] + scene.emitters.radiance.shape[0]) * 12
+    return hits, distinct, ops, 2 * per_kernel + tables
+
+
+def k5_case(name, scene, sl, kw, card, seed_dl):
+    """Phase 12c on one chunk: K5's L and gradients (of sum(L * dL), dL a
+    seeded normal) against replay_radiance_plain's L and autograd gradients
+    on the same card tensors, then both timed with CUDA events in turns
+    (plain, kernel, kernel, plain).  Returns a dict of the numbers."""
+    import torch
+
+    from mitsuba3_experiments_tpu_torch.integrators import replay, replay_cuda
+    from mitsuba3_experiments_tpu_torch.scene import params
+
+    rows, D = sl.prim.shape
+    tabs = {k: params.traverse(scene)[k].detach().clone() for k in DIFF_KEYS}
+    dL = torch.as_tensor(np.random.default_rng(seed_dl).normal(size=(rows, 3)),
+                         dtype=torch.float32, device=sl.prim.device)
+    packed = replay_cuda.pack_args(scene, sl, **kw)
+    # rows whose radiance is not finite carry no gradient (the film's splat
+    # zeroes them): K5 must give non-finite values on the plain replay's
+    # rows and no others, and dL is 0 on those rows for both versions
+    with torch.no_grad():
+        fin_plain = torch.isfinite(replay.replay_radiance_plain(scene, sl, **kw)[0]).all(dim=1)
+    fin_k5 = torch.isfinite(replay_cuda.replay_forward(packed)).all(dim=1)
+    check(bool(torch.equal(fin_k5, fin_plain)),
+          f"12c {name}: K5's non-finite rows ({int((~fin_k5).sum())}) are not the plain "
+          f"replay's ({int((~fin_plain).sum())})")
+    dL[~fin_plain] = 0.0
+
+    def kernel_fwd():
+        return replay_cuda.replay_forward(packed)
+
+    def kernel_adj():
+        return replay_cuda.replay_adjoint(packed, dL)
+
+    def plain():
+        q = {k: v.clone().requires_grad_(True) for k, v in tabs.items()}
+        L = replay.replay_radiance_plain(params.update(scene, q), sl, **kw)[0]
+        return L.detach(), torch.autograd.grad((L * dL).sum(), list(q.values()))
+
+    torch.cuda.synchronize()
+    t_plain, t_fwd, t_adj, dev_fwd, dev_adj = [], [], [], [], []
+    ref_L, ref_g = None, None
+    for turn in ("plain", "kernel", "kernel", "plain"):
+        if turn == "plain":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = plain()
+            end.record()
+            torch.cuda.synchronize()
+            t_plain.append(start.elapsed_time(end))
+            if ref_L is None:
+                ref_L, ref_g = out
+            del out
+        else:
+            L, g = kernel_fwd(), kernel_adj()
+            torch.cuda.synchronize()
+            t_fwd.append(cuda_ms(kernel_fwd, 5))
+            t_adj.append(cuda_ms(kernel_adj, 5))
+            dev_fwd.append(device_ms(kernel_fwd, 5))
+            dev_adj.append(device_ms(kernel_adj, 5))
+    fin = torch.isfinite(L).all(dim=1) & torch.isfinite(ref_L).all(dim=1)
+    close = float(torch.isclose(L, ref_L, rtol=1e-4, atol=1e-5, equal_nan=True)
+                  .all(dim=1).float().mean())
+    err = float((L[fin] - ref_L[fin]).abs().max())
+    print(f"[12c {name}] {rows} rows x {D}, {kw.get('n_steps') or D} steps: L of K5 within rtol "
+          f"1e-4 / atol 1e-5 of the plain replay on {close:.6f} of the rows, max abs err "
+          f"{err:.3e} ({int((~fin).sum())} rows not finite)")
+    check(close >= 0.9999, f"12c {name}: only {close:.6f} of K5's rows equal the plain replay's")
+    for k, gk, gr in zip(DIFF_KEYS, g, ref_g):
+        scale = float(gr.abs().max())
+        worst = float((gk - gr).abs().max())
+        print(f"[12c {name}] d sum(L dL) / d {k}: max |g| {scale:.6e}, max |K5 - plain| "
+              f"{worst:.3e}")
+        check(scale > 0 and bool(torch.isfinite(gk).all()), f"12c {name}: no gradient of {k}")
+        check(bool(torch.allclose(gk, gr, rtol=1e-3, atol=1e-4 * scale)),
+              f"12c {name}: K5's gradient of {k} differs from the plain replay's")
+    hit_vertices, distinct, ops, nbytes = k5_work(scene, sl, kw)
+    bound = max(nbytes / HBM_BYTES_S, ops / F32_OPS_S) * 1e3
+    by = "bytes" if nbytes / HBM_BYTES_S >= ops / F32_OPS_S else "operations"
+    ms = float(np.mean(t_fwd) + np.mean(t_adj))
+    dev = float(np.mean(dev_fwd) + np.mean(dev_adj))
+    print(f"[12c {name}] in turns (plain, kernel, kernel, plain): plain fwd+bwd "
+          f"{t_plain[0]:.3f}, {t_plain[1]:.3f} ms; K5 forward {t_fwd[0]:.4f}, {t_fwd[1]:.4f} ms "
+          f"(device {dev_fwd[0]:.4f}, {dev_fwd[1]:.4f}), adjoint {t_adj[0]:.4f}, {t_adj[1]:.4f} "
+          f"ms (device {dev_adj[0]:.4f}, {dev_adj[1]:.4f}) ({card})")
+    print(f"[12c {name}] bound: {hit_vertices} hit vertices on {distinct} faces, "
+          f"{ops / hit_vertices:.1f} float32 operations a vertex, {nbytes / 1e6:.2f} MB = "
+          f"{nbytes / HBM_BYTES_S * 1e3:.4f} ms, {ops / 1e9:.3f} G float32 operations = "
+          f"{ops / F32_OPS_S * 1e3:.4f} ms: {bound:.4f} ms by {by}; K5 (forward + adjoint) "
+          f"{ms:.4f} ms, at {bound / ms:.4f} of it; plain {np.mean(t_plain) / ms:.1f}x K5")
+    return {"err": err, "ms": ms, "device_ms": dev, "plain_ms": float(np.mean(t_plain)),
+            "bound_ms": bound, "bound_by": by}
+
+
+def phase_k5(scene, card, rec8, rec65, target):
+    """Phase 12c: K5 against replay_radiance_plain on the first 131,072 rows
+    of phase 12's record (depth 8) and on the longest chunk of phase 13's
+    (depth 65) as replay_grads_sorted sorts it, each timed beside its bound;
+    then one replay_grads_full chunk (depth 8) under torch.profiler: its
+    device busy share, device operations and the host's aten operators.
+    Returns the depth-8 numbers for the kernels' JSON line (and the
+    depth-65 ones under "d65")."""
+    import torch
+
+    from mitsuba3_experiments_tpu_torch.integrators import path_lengths, replay, replay_grads_full
+    from mitsuba3_experiments_tpu_torch.scene import params
+
+    w, h = RES
+    d8 = k5_case("depth 8, first chunk", scene, rec8.rows(slice(0, REPLAY_CHUNK)),
+                 dict(seed=0, idx0=0, spp=SPP, max_depth=MAX_DEPTH, rr_depth=4,
+                      ray_end=w * h * SPP), card, 8)
+    lens = path_lengths(rec65)
+    order = torch.argsort(-lens, stable=True)[:REPLAY_CHUNK]
+    steps = min(c for c in replay._depth_classes(DEEP) if c >= int(lens[order[0]]))
+    d65 = k5_case("depth 65, longest sorted chunk", scene, rec65.rows(order),
+                  dict(seed=0, idx0=0, idx=order, n_steps=steps, spp=1, max_depth=DEEP,
+                       rr_depth=4, ray_end=w * h), card, 65)
+    del order, lens
+
+    prof_mod = load_by_path(os.path.join("scripts", "torch_profile_render.py"))
+    diff = {k: params.traverse(scene)[k] for k in DIFF_KEYS}
+    chunk = rec8.rows(slice(0, REPLAY_CHUNK))
+
+    def run():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        replay_grads_full(scene, diff, params.update, target, 0, chunk, w * h * SPP,
+                          chunk=REPLAY_CHUNK, spp=SPP, max_depth=MAX_DEPTH, rr_depth=4)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    run()
+    wall = [run() for _ in range(3)]
+    wall_s, prof = prof_mod.profiled(run)
+    events, busy, by_kind = prof_mod.device_breakdown(
+        prof, os.path.join("out", "chip_smoke_k5_chunk.trace.json"))
+    aten = sum(e.count for e in prof.key_averages() if e.key.startswith("aten::"))
+    print(f"[12c profile] one replay_grads_full chunk of {REPLAY_CHUNK} rows (depth 8): wall "
+          + ", ".join(f"{x * 1e3:.2f}" for x in wall) + f" ms unprofiled; profiled "
+          f"{wall_s * 1e3:.2f} ms, device busy {busy:.3f} ms (share {busy / (wall_s * 1e3):.4f} "
+          f"profiled, {busy / (np.median(wall) * 1e3):.4f} of the unprofiled median), "
+          f"{len(events)} device operations, {aten} aten operators ({card})")
+    for k, (c, ms) in sorted(by_kind.items(), key=lambda kv: -kv[1][1]):
+        print(f"[12c profile]   {k:28s} {c:5d} ops {ms:10.3f} ms")
+    d8["d65"] = d65
+    d8["err"] = max(d8["err"], d65["err"])
+    return d8
+
+
+def phase_card_vs_cpu_replay(device, card):
     """Phase 14: record + replay on the card and on the CPU."""
     import torch
 
@@ -1041,8 +1300,14 @@ def phase_card_vs_cpu_replay(device):
         rec, film = record_full_pipelined(scene, 3, n, spp=spp, max_depth=depth, rr_depth=4,
                                           pad_to=pad, return_film=True)
         diff = {k: params.traverse(scene)[k] for k in DIFF_KEYS}
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            reset_counts()
         g = replay_grads(scene, diff, params.update, target, 3, rec, n, chunk=pad // 2, spp=spp,
                          max_depth=depth, rr_depth=4, mode="full")
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            note_k5("14 replay on the card", read_counts(), card)
         out[dev.type] = (rec, {k: v.cpu().numpy() for k, v in g.items()})
     (rc, gc), (rh, gh) = out["cuda"], out["cpu"]
     d_prim = int((rc.prim.cpu() != rh.prim).sum())
@@ -1169,9 +1434,12 @@ def phase_diff_render(dev, card):
             check(counts["k1"] > 0 and counts["plain_traverse"] == 0,
                   "the differentiable render did not run its queries on K1 alone")
             w, h = scene.camera.resolution
+            reset_counts()
             rep = replay_render_grad(scene, {k: params.traverse(scene)[k] for k in DIFF_KEYS},
                                      params.update, target, 5, 0, w * h * spp, spp=spp,
                                      max_depth=depth, rr_depth=4)
+            torch.cuda.synchronize()
+            note_k5("6b replay_render_grad", read_counts(), card)
         out[d.type] = {k: p[k].grad.cpu().numpy() for k in DIFF_KEYS}
     for k in DIFF_KEYS:
         gc, gh, gr = out["cuda"][k], out["cpu"][k], rep[k].cpu().numpy()
@@ -1234,11 +1502,13 @@ def phase_trunc(scene, card):
     check(short > 0, "no chunk of the trunc replay is truncated")
     diff = {k: params.traverse(small)[k] for k in DIFF_KEYS}
     torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
     grads = replay_grads(small, diff, params.update, target, 0, rec, n, chunk=TRUNC_CHUNK,
                          spp=1, max_depth=TRUNC_DEPTH, rr_depth=4, mode="trunc")
     torch.cuda.synchronize()
     print(f"[trunc] replay_grads(mode='trunc'): {time.perf_counter() - t0:.3f} s ({card})")
+    note_k5("13b trunc replay", read_counts(), card)
     for k in DIFF_KEYS:
         g = grads[k]
         scale = float(g.abs().max())
@@ -1838,7 +2108,7 @@ def grads_equal(label, got, ref, rtol, atol_rel):
               f"{label}: the gradients of {k} differ")
 
 
-def sharded_stage(label, run, card, n_rays, hold=False):
+def sharded_stage(label, run, card, n_rays, hold=False, replays=False):
     """Runs one sharded entry point, `run()`, with the counts set to 0 just
     before and read just after: seconds, camera rays/s, K1's launches (and
     no plain traversal), peak device memory; with `hold`, K1 against the
@@ -1864,6 +2134,8 @@ def sharded_stage(label, run, card, n_rays, hold=False):
           f"{peak:.2f} GB ({card})")
     check(counts["k1"] > 0 and counts["plain_traverse"] == 0,
           f"{label}: the ray queries did not run on K1 alone")
+    if replays:
+        note_k5(label.split(" spp")[0], counts, card)
     err = 0.0
     if hold:
         first = {}
@@ -1965,7 +2237,8 @@ def phase_sharded(scene, integrator, card, dev, render_img, persistent_img, repl
             f"19a sharded_replay_grad spp {SPP} depth {MAX_DEPTH}, chunks of {REPLAY_CHUNK}",
             lambda: sharded_replay_grad(scene, diff, target, 0, mesh, n_lanes=persistent.N_LANES,
                                         spp=SPP, max_depth=MAX_DEPTH, rr_depth=4, rfilter="box",
-                                        ray_end=n, chunk=REPLAY_CHUNK), card, n)
+                                        ray_end=n, chunk=REPLAY_CHUNK), card, n,
+            replays=True)
         print(f"[19a sharded_replay_grad] loss {float(loss):.6e}")
         grads_equal("19a sharded_replay_grad against phase 12's replay_grads",
                     {k: v.cpu().numpy() for k, v in g.items()},
@@ -2181,6 +2454,7 @@ def phase_flagship(card, dev):
         rad, col = invert.errors(p, true_rad, true_col)
         curve.append((row["loss"], rad))
         k1 += counts["k1"]
+        note_k5("20b invert_step", counts, card)
         print(f"[20b] step {it}: loss {row['loss']:.6e} rad_err {rad:.4f} col_err {col:.4f}; "
               f"{row['s']:.3f} s (record {row['record_s']:.3f} s, replay {row['replay_s']:.3f} "
               f"s), K1 launches {counts['k1']}, plain traversals {counts['plain_traverse']} "
@@ -2233,6 +2507,13 @@ def phase_bench(card, prod_rate):
         check(len(counts) == 2 and all(c[0] > 0 and c[1] == 0 for c in counts),
               f"{label}: K1 launches and plain traversals {counts}")
         k1 += sum(c[0] for c in counts)
+        k5 = [m.groups() for m in (re.search(r"K5 launches (\d+) \+ (\d+), plain replays (\d+)",
+                                             line) for line in lines) if m]
+        if label == "21 headline":
+            check(len(k5) == 1, f"{label}: no K5 count on the fwd+bwd line")
+            f, a, plain = (int(x) for x in k5[0])
+            note_k5(label, {"k5_fwd": f, "k5_adj": a, "plain_replay": plain,
+                            "k1": counts[1][0]}, card)
         print(f"[{label}] {secs:.1f} s with start-up: fwd+bwd {value:.1f} rays/s, fwd "
               f"{res['extra']['fwd_rays_per_s']:.1f} rays/s, K1 launches (fwd, fwd+bwd) "
               f"{[c[0] for c in counts]} ({card})")
@@ -2421,16 +2702,20 @@ def main() -> int:
     k4_launches, err_k4, k4_ms, k4_plain_ms, k4_bound, k4_dev = phase_k4(dev, card)
 
     # ---- phase 12: production forward + fwd+bwd, depth 8 -------------------
-    target, prod, err_d, prod_grads, prod_rate = phase_production(scene, integrator, card)
+    target, prod, err_d, prod_grads, prod_rate, rec8 = phase_production(scene, integrator, card)
 
     # ---- phase 13: the depth-65 companion ----------------------------------
-    fwd_bwd(scene, target, 1, DEEP, card, "fwd+bwd d65")
+    rec65, _, _, _ = fwd_bwd(scene, target, 1, DEEP, card, "fwd+bwd d65")
+
+    # ---- phase 12c: K5 against its plain version, timed, bound, profiled ---
+    k5 = phase_k5(scene, card, rec8, rec65, target)
+    del rec8, rec65
 
     # ---- phase 13b: the truncated replay against the full one --------------
     k1_trunc = phase_trunc(scene, card)
 
     # ---- phase 14: record + replay, card against CPU -----------------------
-    phase_card_vs_cpu_replay(dev)
+    phase_card_vs_cpu_replay(dev, card)
 
     # ---- phases 15a-15g: the integrator zoo on the stand-in ----------------
     zoo, err_g, simple_img = phase_zoo(scene, card, target.cpu().numpy())
@@ -2480,6 +2765,9 @@ def main() -> int:
                    + sum(zoo.values()) + sum(mcmc.values()) + sum(sharded.values())
                    + k1_two_ranks + k1_flagship + k1_bench)
     k2_launches = train["k2"] + nrc_train["k2"] + nrc_render["k2"]
+    k5_launches = sum(f + a for f, a in K5_BY_PHASE.values())
+    print("[smoke] K5 launches (forward + adjoint): " + ", ".join(
+        f"{k} {f} + {a}" for k, (f, a) in K5_BY_PHASE.items()) + f"; {k5_launches} in all")
     print(f"[smoke] K1 launches: fwd+bwd d8 {prod['k1']}, differentiable render {k1_diff}, "
           f"trunc record {k1_trunc}, NRC training {nrc_train['k1']}, NRC render "
           f"{nrc_render['k1']}, zoo " + ", ".join(f"{k} {v}" for k, v in zoo.items())
@@ -2507,6 +2795,10 @@ def main() -> int:
         {"name": "gather_chain", "route": "cuda", "source": K4_SOURCE, "replaces": K4_REPLACES,
          "launches": k4_launches, "max_abs_err": err_k4, "ms": k4_ms, "plain_ms": k4_plain_ms,
          "bound_ms": k4_bound, "bound_by": "bytes", "library_ms": None, "device_ms": k4_dev},
+        {"name": "replay_path", "route": "cuda", "source": K5_SOURCE, "replaces": K5_REPLACES,
+         "launches": k5_launches, "max_abs_err": k5["err"], "ms": k5["ms"],
+         "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+         "library_ms": None, "device_ms": k5["device_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,7 @@ from .persistent import ray_pixel, ray_positions, render_persistent, splat_defer
 from .pipelined import record_full_pipelined, render_pipelined  # noqa: F401
 from .replay import (  # noqa: F401
     PathRecord,
+    ReplayRadiance,
     path_lengths,
     record_chunk,
     record_full,
@@ -18,6 +19,7 @@ from .replay import (  # noqa: F401
     replay_grads_full,
     replay_grads_sorted,
     replay_radiance,
+    replay_radiance_plain,
     replay_render_grad,
 )
 from .simple import SimpleIntegrator  # noqa: F401

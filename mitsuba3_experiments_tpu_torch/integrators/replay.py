@@ -9,12 +9,16 @@ radiance), so the traversal stays out of the autograd graph:
      writes per (camera ray, depth) the closest hit's (prim, u, v) and the
      NEE shadow ray's occlusion bit into a PathRecord.  Everything else is
      rebuilt from the counter-based draws keyed by (camera ray, dimension).
-  2. REPLAY: a Python loop over depth runs the forward's own shading
-     (persistent._shade) on the recorded hit, with the recorded visibility
-     in place of the shadow query, and torch autograd through the material
-     and emitter table reads.  `jax.lax.stop_gradient` becomes `.detach()`
-     at the same places (the RR probability and the throughput test, inside
-     `_shade`).
+  2. REPLAY: the forward's own shading (persistent._shade) of each recorded
+     hit, with the recorded visibility in place of the shadow query.  On
+     the card `replay_radiance` is K5 (integrators/replay_cuda.py,
+     csrc/replay_path.cu) behind the autograd.Function `ReplayRadiance`:
+     one launch walks every row's path for L, one walks it again for the
+     gradients of materials.base_color and emitters.radiance.  Its plain
+     version, `replay_radiance_plain`, is a Python loop over depth with
+     torch autograd through the material and emitter table reads; the CPU
+     runs it.  `jax.lax.stop_gradient` becomes `.detach()` at the same
+     places (the RR probability and the throughput test, inside `_shade`).
 
 The JAX package's `_prim_encode` / `_prim_decode` (a TPU flush-to-zero
 workaround) are not needed: the record keeps prim as int32.
@@ -22,6 +26,7 @@ workaround) are not needed: the record keeps prim as int32.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import torch
 
@@ -29,8 +34,14 @@ from .. import resolve_device
 from ..core import math as m
 from ..render import film as filmlib
 from ..render import sensor as sensorlib
+from ..scene.params import PARAM_KEYS
 from ..scene.types import Scene
 from . import persistent as pp
+from . import replay_cuda
+
+
+# replay_radiance_plain calls (a plain int, read by tests and the smoke test)
+plain_calls = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,23 +98,36 @@ def record_full(scene: Scene, seed, n_rays: int, *, spp: int, max_depth: int,
                         n_lanes=n_lanes, pad_to=pad_to)[0]
 
 
-def replay_radiance(scene: Scene, rec: PathRecord, seed, idx0, *, spp: int, max_depth: int,
-                    rr_depth: int, ray_end=None, idx=None, n_steps: int | None = None):
-    """Differentiable per-row radiance of a PathRecord: (L (N, 3), film pos
-    (N, 2), act0 (N,) bool).  Row r is camera ray idx0 + r, or idx[r] when
-    `idx` (int64) is given; rows at or past `ray_end` are inactive.
-    `n_steps` truncates the depth loop, exactly for rows whose path needs
-    at most n_steps steps (path_lengths); the loop also ends once no row is
-    active, since every later step adds nothing."""
+def _rows(scene: Scene, rec: PathRecord, seed, idx0, spp: int, ray_end, idx):
+    """(camera-ray index (N,) int64, film position (N, 2), active (N,)) of
+    a record's rows."""
     n = rec.prim.shape[0]
     dev = rec.prim.device
-    if idx is None:
-        idx = torch.arange(n, dtype=torch.int64, device=dev) + int(idx0)
-    idx = idx.to(torch.int64)
-    act0 = torch.ones((n,), dtype=torch.bool, device=dev) if ray_end is None else idx < int(ray_end)
+    idx = torch.arange(n, dtype=torch.int64, device=dev) + int(idx0) if idx is None \
+        else idx.to(torch.int64)
+    act0 = torch.ones((n,), dtype=torch.bool, device=dev) if ray_end is None \
+        else idx < int(ray_end)
+    return idx, pp.ray_positions(scene.camera, seed, idx, spp), act0
+
+
+def replay_radiance_plain(scene: Scene, rec: PathRecord, seed, idx0, *, spp: int,
+                          max_depth: int, rr_depth: int, ray_end=None, idx=None,
+                          n_steps: int | None = None):
+    """K5's plain version: the per-row radiance of a PathRecord as a Python
+    loop over depth of the forward's own torch operators, differentiable by
+    autograd with respect to every scene tensor: (L (N, 3), film pos (N, 2),
+    act0 (N,) bool).  Row r is camera ray idx0 + r, or idx[r] when `idx`
+    (int64) is given; rows at or past `ray_end` are inactive.  `n_steps`
+    truncates the depth loop, exactly for rows whose path needs at most
+    n_steps steps (path_lengths); the loop also ends once no row is active,
+    since every later step adds nothing."""
+    global plain_calls
+    plain_calls += 1
+    n = rec.prim.shape[0]
+    dev = rec.prim.device
+    idx, pos, act0 = _rows(scene, rec, seed, idx0, spp, ray_end, idx)
 
     # the camera ray, exactly as the recorder armed it
-    pos = pp.ray_positions(scene.camera, seed, idx, spp)
     ray0 = sensorlib.sample_ray(scene.camera, pos)
 
     L = torch.zeros((n, 3), dtype=m.Float, device=dev)
@@ -137,6 +161,62 @@ def replay_radiance(scene: Scene, rec: PathRecord, seed, idx0, *, spp: int, max_
         d = torch.where(adv[:, None], sh.next_d, d)
         act = adv
         depth = torch.where(adv, depth + 1, depth)
+    return L, pos, act0
+
+
+# the scene tensors K5 differentiates; replay_radiance raises on the card if
+# another of scene/params.py's keys requires a gradient
+K5_KEYS = ("materials.base_color", "emitters.radiance")
+
+
+def _on_card(device) -> bool:
+    return device.type == "cuda"
+
+
+def _other_grad_keys(scene: Scene):
+    return [k for k in PARAM_KEYS if k not in K5_KEYS and PARAM_KEYS[k](scene).requires_grad]
+
+
+class ReplayRadiance(torch.autograd.Function):
+    """L (N, 3) of a PathRecord chunk on the card as a function of the
+    tables `base_color` (M, 3) and `radiance` (E, 3), which are `job.scene`'s
+    own: forward launches K5's forward kernel, backward its adjoint.  `job`
+    holds the rest of replay_radiance's arguments."""
+
+    @staticmethod
+    def forward(ctx, base_color, radiance, job):
+        ctx.job = job
+        return replay_cuda.replay_forward(replay_cuda.pack_args(job.scene, job.rec, **job.kw))
+
+    @staticmethod
+    def backward(ctx, dL):
+        job = ctx.job
+        g_bc, g_rad = replay_cuda.replay_adjoint(
+            replay_cuda.pack_args(job.scene, job.rec, **job.kw), dL)
+        want = ctx.needs_input_grad
+        return (g_bc if want[0] else None), (g_rad if want[1] else None), None
+
+
+def replay_radiance(scene: Scene, rec: PathRecord, seed, idx0, *, spp: int, max_depth: int,
+                    rr_depth: int, ray_end=None, idx=None, n_steps: int | None = None):
+    """Differentiable per-row radiance of a PathRecord: (L (N, 3), film pos
+    (N, 2), act0 (N,) bool), as replay_radiance_plain gives it.  On the card
+    L comes from K5 through ReplayRadiance, which differentiates
+    materials.base_color and emitters.radiance; another scene key that
+    requires a gradient (materials.params, textures.data, camera.to_world)
+    raises there.  On the CPU it is replay_radiance_plain, which
+    differentiates every key."""
+    kw = dict(seed=seed, idx0=idx0, spp=spp, max_depth=max_depth, rr_depth=rr_depth,
+              ray_end=ray_end, idx=idx, n_steps=n_steps)
+    if not _on_card(rec.prim.device):
+        return replay_radiance_plain(scene, rec, **kw)
+    others = _other_grad_keys(scene)
+    if others:
+        raise ValueError(f"K5 differentiates only {', '.join(K5_KEYS)}; the replay on the card "
+                         f"cannot differentiate {', '.join(others)}")
+    L = ReplayRadiance.apply(scene.materials.base_color, scene.emitters.radiance,
+                             SimpleNamespace(scene=scene, rec=rec, kw=kw))
+    _, pos, act0 = _rows(scene, rec, seed, idx0, spp, ray_end, idx)
     return L, pos, act0
 
 

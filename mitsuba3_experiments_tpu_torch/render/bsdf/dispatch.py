@@ -70,10 +70,17 @@ def _albedo(row, textures, uv):
     return torch.where((row["tex_id"] >= 0)[:, None], base * tex, base)
 
 
+def _clip(x, lo: float, hi: float):
+    """jnp.clip with its gradient: minimum(maximum(x, lo), hi), which gives
+    half the gradient where x equals a bound (torch.clamp gives all of it).
+    The bounds are filled on x's device (no copy from the host)."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
+
+
 def _opacity(row, textures, uv):
     op = row["opacity"]
     tex = eval_texture(textures, row["opacity_tex"], uv)
-    return torch.clamp(torch.where((row["opacity_tex"] >= 0)[:, None], tex, op), 0.0, 1.0)
+    return _clip(torch.where((row["opacity_tex"] >= 0)[:, None], tex, op), 0.0, 1.0)
 
 
 def _with_z(v, z):
@@ -310,7 +317,7 @@ def sample(mats, textures, si, u1, u2, active=None):
     # --- mask pass-through lobe -------------------------------------------
     if K.MASK in present:
         op = _opacity(row, textures, si.uv)
-        op_l = torch.clamp(m.luminance(op), 1e-4, 1.0 - 1e-4)
+        op_l = _clip(m.luminance(op), 1e-4, 1.0 - 1e-4)
         mask_pass = row["is_mask"] & (u1 >= op_l)
         # renormalize u1 within the kept branch
         u1 = torch.where(row["is_mask"], torch.clamp(m.safe_div(u1, op_l), 0.0, 1.0 - 1e-6), u1)
@@ -495,7 +502,8 @@ def sample(mats, textures, si, u1, u2, active=None):
     valid = valid & front_ok & hemi_ok & (pdf > 0.0)
 
     weight = torch.where(valid[:, None], weight, 0.0)
-    weight = torch.clamp(weight, min=0.0)
+    # jnp.maximum's gradient: half where the weight is 0 (a zero albedo channel)
+    weight = torch.maximum(weight, weight.new_zeros(()))
 
     # un-flip wo back to the true frame
     wo = _with_z(wo, wo[..., 2] * flip_sign)

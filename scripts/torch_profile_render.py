@@ -40,6 +40,8 @@ def kind_of(name: str, cat: str) -> str:
         return "K2 fused_mlp_kernel"
     if "tile_totals" in name or "scan_totals" in name or "tile_scan" in name:
         return "K3 prefix sum kernels"
+    if "replay_forward_kernel" in name or "replay_adjoint_kernel" in name:
+        return "K5 replay kernels"
     if "gemm" in low or "cutlass" in low:
         return "matrix products (cuBLAS)"
     if "index" in low or "gather" in low or "scatter" in low:

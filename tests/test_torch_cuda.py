@@ -825,3 +825,108 @@ def test_two_gloo_ranks_on_one_card(card, tmp_path):
     for r in res:
         for k, ref in refs.items():
             np.testing.assert_allclose(r[k], ref.cpu().numpy(), rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+# ---- K5: the path replay kernels -------------------------------------------
+
+def _replay_chunk(scene, depth, spp=2, seed=3):
+    from mitsuba3_experiments_tpu_torch.integrators import record_full
+
+    w, h = scene.camera.resolution
+    n = w * h * spp
+    rec = record_full(scene, seed, n, spp=spp, max_depth=depth, rr_depth=4, pad_to=n + 100)
+    kw = dict(spp=spp, max_depth=depth, rr_depth=4, ray_end=n)
+    dL = torch.as_tensor(np.random.default_rng(depth).normal(size=(n + 100, 3)),
+                         dtype=torch.float32, device="cuda")
+    return rec, kw, dL
+
+
+def _plain_grads(scene, rec, seed, kw, dL):
+    from mitsuba3_experiments_tpu_torch.integrators import replay
+    from mitsuba3_experiments_tpu_torch.scene import params
+
+    p = {k: params.traverse(scene)[k].detach().clone().requires_grad_(True)
+         for k in ("materials.base_color", "emitters.radiance")}
+    L = replay.replay_radiance_plain(params.update(scene, p), rec, seed, 0, **kw)[0]
+    return L.detach(), torch.autograd.grad((L * dL).sum(), list(p.values()))
+
+
+def _assert_grads(got, ref):
+    for g, r in zip(got, ref):
+        scale = float(r.abs().max())
+        assert scale > 0 and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("depth", [8, 65])
+def test_replay_kernel_matches_plain(scene, depth):
+    from mitsuba3_experiments_tpu_torch.integrators import replay, replay_cuda
+    from mitsuba3_experiments_tpu_torch.scene import params
+
+    rec, kw, dL = _replay_chunk(scene, depth)
+    L_p, g_p = _plain_grads(scene, rec, 3, kw, dL)
+    p = {k: params.traverse(scene)[k].detach().clone().requires_grad_(True)
+         for k in ("materials.base_color", "emitters.radiance")}
+    fwd, adj, plain = replay_cuda.forward_launches, replay_cuda.adjoint_launches, \
+        replay.plain_calls
+    L = replay.replay_radiance(params.update(scene, p), rec, 3, 0, **kw)[0]
+    g = torch.autograd.grad((L * dL).sum(), list(p.values()))
+    torch.cuda.synchronize()
+    assert replay_cuda.forward_launches == fwd + 1 and replay_cuda.adjoint_launches == adj + 1
+    assert replay.plain_calls == plain
+    close = torch.isclose(L, L_p, rtol=1e-4, atol=1e-5).all(dim=1).float().mean()
+    assert float(close) >= 0.9999, float(close)
+    _assert_grads(g, g_p)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_replay_adjoint_table_accumulation(scene, shared):
+    from mitsuba3_experiments_tpu_torch.integrators import replay_cuda
+
+    rec, kw, dL = _replay_chunk(scene, 8)
+    _, g_p = _plain_grads(scene, rec, 3, kw, dL)
+    packed = replay_cuda.pack_args(scene, rec, 3, 0, **kw)
+    got = replay_cuda.replay_adjoint(packed, dL, shared=shared)
+    torch.cuda.synchronize()
+    _assert_grads(got, g_p)
+    assert packed.args.shared_tables == int(shared)
+    # a table of 20,000 materials does not fit a block's 227 KB: global atomics
+    assert replay_cuda.shared_fits(20, 2) and not replay_cuda.shared_fits(20_000, 0)
+
+
+@pytest.mark.parametrize("mode", ["full", "sorted", "trunc"])
+def test_replay_grads_on_card_run_k5(scene, mode):
+    from mitsuba3_experiments_tpu_torch.integrators import (
+        PathIntegrator, record_full_pipelined, render, replay, replay_cuda, replay_grads)
+    from mitsuba3_experiments_tpu_torch.scene import params
+
+    w, h = scene.camera.resolution
+    n = w * h * 2
+    pad = -(-n // 1024) * 1024
+    with torch.no_grad():
+        target = render(scene, PathIntegrator(max_depth=4), seed=9, spp=2, rfilter="box")
+    rec, film = record_full_pipelined(scene, 3, n, spp=2, max_depth=8, rr_depth=4, pad_to=pad,
+                                      return_film=True)
+    diff = {k: params.traverse(scene)[k] for k in ("materials.base_color", "emitters.radiance")}
+    fwd, adj, plain = replay_cuda.forward_launches, replay_cuda.adjoint_launches, \
+        replay.plain_calls
+    g = replay_grads(scene, diff, params.update, target, 3, rec, n, chunk=1024, spp=2,
+                     max_depth=8, rr_depth=4, mode=mode, film=film)
+    torch.cuda.synchronize()
+    chunks = pad // 1024
+    assert replay_cuda.forward_launches == fwd + chunks
+    assert replay_cuda.adjoint_launches == adj + chunks
+    assert replay.plain_calls == plain
+    for k, v in g.items():
+        assert bool(torch.isfinite(v).all()) and float(v.abs().max()) > 0, k
+
+
+def test_replay_on_card_raises_for_other_keys(scene):
+    from mitsuba3_experiments_tpu_torch.integrators import replay
+    from mitsuba3_experiments_tpu_torch.scene import params
+
+    rec, kw, _ = _replay_chunk(scene, 4)
+    for key in ("materials.params", "textures.data", "camera.to_world"):
+        p = {key: params.traverse(scene)[key].detach().clone().requires_grad_(True)}
+        with pytest.raises(ValueError, match=key):
+            replay.replay_radiance(params.update(scene, p), rec, 3, 0, **kw)

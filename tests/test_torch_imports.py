@@ -39,7 +39,8 @@ def test_every_module_imports_without_jax():
                 "integrators.spectral", "integrators.bdpt", "integrators.sppm",
                 "integrators.restir", "integrators.pssmlt", "integrators.metropolis",
                 "models.normflow", "models.reparam", "utils.checkpoint", "utils.profile",
-                "validation", "validation.oracle", "parallel", "parallel.mesh"):
+                "validation", "validation.oracle", "parallel", "parallel.mesh",
+                "integrators.replay_cuda"):
         assert f"{port.__name__}.{new}" in mods, new
     code = (
         "import importlib, sys\n"
