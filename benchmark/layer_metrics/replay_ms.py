@@ -1,0 +1,9 @@
+"""replay_ms: mean milliseconds a step of the harness's `replay` span around the
+port's `replay_grads` in the timed window of a
+`--trace 1` run, on the host clock between synchronizations.  Moves
+fwd_bwd_rays_per_s."""
+
+
+def read(ctx):
+    d = ctx["spans"].get("replay")
+    return 1e3 * sum(d) / len(d) if d else None

@@ -1,0 +1,1 @@
+# Package marker of the frozen copy (see ../__init__.py).
