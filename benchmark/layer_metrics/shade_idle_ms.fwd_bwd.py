@@ -1,0 +1,7 @@
+"""shade_idle_ms.fwd_bwd: device-idle milliseconds a traced step in gaps that
+open while the host is in `m3t.shade` (the eager shading, `persistent._shade`)
+and in no span inside it.  Read inside the profiler window, where host-bound
+idle reads higher than untraced (see _spans).  Moves fwd_bwd_rays_per_s."""
+from benchmark.layer_metrics import _spans
+
+read = _spans.idle_ms("fwd_bwd_rays_per_s", ("m3t.shade",))

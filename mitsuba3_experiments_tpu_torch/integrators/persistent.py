@@ -45,6 +45,7 @@ from ..render.emitter import (
     sample_emitter_direction,
 )
 from ..scene.types import Scene
+from ..utils.profile import span, spanned
 from .common import mis_weight
 from .wavefront import _rand
 
@@ -87,6 +88,7 @@ def ray_positions(camera, seed, idx, spp: int):
     return torch.stack([px, py], dim=-1) + jitter
 
 
+@spanned("m3t.splat")
 def splat_deferred(camera, seed, rayL, idx0, n_valid, *, spp: int, rfilter: str,
                    w: int, h: int):
     """One filter splat of a deferred per-ray radiance buffer (row r =
@@ -99,6 +101,7 @@ def splat_deferred(camera, seed, rayL, idx0, n_valid, *, spp: int, rfilter: str,
     return filmlib.put(film, pos, rayL, active=row < int(n_valid), rfilter=rfilter)
 
 
+@spanned("m3t.shade")
 def _shade(scene: Scene, seed, doneA, hit_o, hit_d, hit_t, hit_face, hit_u, hit_v,
            L, f, eta, depth, prev_p, prev_pdf, prev_delta, idx, *, max_depth: int,
            rr_depth: int):
@@ -172,6 +175,12 @@ def _shade(scene: Scene, seed, doneA, hit_o, hit_d, hit_t, hit_face, hit_u, hit_
     )
 
 
+def _masked(x, mask):
+    """x[mask]: a boolean-mask read, which waits for the device."""
+    with span("m3t.wait"):
+        return x[mask]
+
+
 @torch.no_grad()
 def trace_rays(scene: Scene, seed, idx0: int, n_rows: int, n_valid: int, *, spp: int,
                max_depth: int, rr_depth: int, n_lanes: int = N_LANES, rec=None):
@@ -184,48 +193,55 @@ def trace_rays(scene: Scene, seed, idx0: int, n_rows: int, n_valid: int, *, spp:
     rayL = torch.zeros((n_rows, 3), dtype=m.Float, device=dev)
     kw = dict(max_depth=max_depth, rr_depth=rr_depth)
     for start in range(0, n_valid, n_lanes):
-        row = torch.arange(start, min(start + n_lanes, n_valid), dtype=torch.int64, device=dev)
-        idx = row + int(idx0)
-        ray = sensorlib.sample_ray(scene.camera, ray_positions(scene.camera, seed, idx, spp))
-        n = row.shape[0]
-        o, d = ray.o.contiguous(), ray.d   # o: the camera origin, expanded
-        L = torch.zeros((n, 3), dtype=m.Float, device=dev)
-        f = torch.ones((n, 3), dtype=m.Float, device=dev)
-        eta = torch.ones((n,), dtype=m.Float, device=dev)
-        depth = torch.ones((n,), dtype=torch.int32, device=dev)
-        prev_p, prev_pdf = o, torch.ones((n,), dtype=m.Float, device=dev)
-        prev_delta = torch.ones((n,), dtype=torch.bool, device=dev)
-        while n:
-            # one traversal launch over every live ray (K1 on the card)
-            every = torch.ones((n,), dtype=torch.bool, device=dev)
-            t, face, u, v = _query(scene, Ray.make(o, d), every, False)
-            col = depth.long() - 1
-            if rec is not None:
-                hit = face >= 0
-                rec.prim[row, col] = face
-                rec.u[row, col] = torch.where(hit, u, 0.0)
-                rec.v[row, col] = torch.where(hit, v, 0.0)
-            sh = _shade(scene, seed, every, o, d, t, face, u, v, L, f, eta, depth, prev_p,
-                        prev_pdf, prev_delta, idx, **kw)
-            em = torch.nonzero(sh.active_em).squeeze(1)
-            unoccluded = sh.active_em.clone()
-            if em.numel():
-                shadow = Ray(o=sh.shadow_o[em], d=sh.shadow_d[em], maxt=sh.shadow_maxt[em])
-                _, occ_face, _, _ = _query(scene, shadow, every[:em.numel()], True)
-                occluded = occ_face >= 0
-                unoccluded[em] = ~occluded
-                if rec is not None:
-                    rec.occl[row[em], col[em]] = occluded
-            L = sh.L + torch.where(unoccluded[:, None], sh.nee_L, 0.0)
+        with span("m3t.record.batch"):
+            row = torch.arange(start, min(start + n_lanes, n_valid), dtype=torch.int64,
+                               device=dev)
+            idx = row + int(idx0)
+            ray = sensorlib.sample_ray(scene.camera, ray_positions(scene.camera, seed, idx, spp))
+            n = row.shape[0]
+            o, d = ray.o.contiguous(), ray.d   # o: the camera origin, expanded
+            L = torch.zeros((n, 3), dtype=m.Float, device=dev)
+            f = torch.ones((n, 3), dtype=m.Float, device=dev)
+            eta = torch.ones((n,), dtype=m.Float, device=dev)
+            depth = torch.ones((n,), dtype=torch.int32, device=dev)
+            prev_p, prev_pdf = o, torch.ones((n,), dtype=m.Float, device=dev)
+            prev_delta = torch.ones((n,), dtype=torch.bool, device=dev)
+            while n:
+                with span("m3t.bounce"):
+                    # one traversal launch over every live ray (K1 on the card)
+                    every = torch.ones((n,), dtype=torch.bool, device=dev)
+                    t, face, u, v = _query(scene, Ray.make(o, d), every, False)
+                    col = depth.long() - 1
+                    if rec is not None:
+                        hit = face >= 0
+                        rec.prim[row, col] = face
+                        rec.u[row, col] = torch.where(hit, u, 0.0)
+                        rec.v[row, col] = torch.where(hit, v, 0.0)
+                    sh = _shade(scene, seed, every, o, d, t, face, u, v, L, f, eta, depth,
+                                prev_p, prev_pdf, prev_delta, idx, **kw)
+                    with span("m3t.wait"):
+                        em = torch.nonzero(sh.active_em).squeeze(1)
+                    unoccluded = sh.active_em.clone()
+                    if em.numel():
+                        shadow = Ray(o=sh.shadow_o[em], d=sh.shadow_d[em], maxt=sh.shadow_maxt[em])
+                        _, occ_face, _, _ = _query(scene, shadow, every[:em.numel()], True)
+                        occluded = occ_face >= 0
+                        unoccluded[em] = ~occluded
+                        if rec is not None:
+                            rec.occl[row[em], col[em]] = occluded
+                    with span("m3t.compact"):
+                        L = sh.L + torch.where(unoccluded[:, None], sh.nee_L, 0.0)
 
-            done = ~sh.cont
-            rayL[row[done]] = torch.where(torch.isfinite(L[done]), L[done], 0.0)
-            keep = torch.nonzero(sh.cont).squeeze(1)
-            n = keep.numel()
-            row, idx, L = row[keep], idx[keep], L[keep]
-            o, d = sh.next_o[keep], sh.next_d[keep]
-            f, eta, depth = sh.f[keep], sh.eta[keep], depth[keep] + 1
-            prev_p, prev_pdf, prev_delta = sh.p[keep], sh.pdf[keep], sh.delta[keep]
+                        done = ~sh.cont
+                        rayL[_masked(row, done)] = torch.where(
+                            torch.isfinite(_masked(L, done)), _masked(L, done), 0.0)
+                        with span("m3t.wait"):
+                            keep = torch.nonzero(sh.cont).squeeze(1)
+                        n = keep.numel()
+                        row, idx, L = row[keep], idx[keep], L[keep]
+                        o, d = sh.next_o[keep], sh.next_d[keep]
+                        f, eta, depth = sh.f[keep], sh.eta[keep], depth[keep] + 1
+                        prev_p, prev_pdf, prev_delta = sh.p[keep], sh.pdf[keep], sh.delta[keep]
     return rayL
 
 

@@ -36,6 +36,7 @@ from ..render import film as filmlib
 from ..render import sensor as sensorlib
 from ..scene.params import PARAM_KEYS
 from ..scene.types import Scene
+from ..utils.profile import span
 from . import persistent as pp
 from . import replay_cuda
 
@@ -140,7 +141,9 @@ def replay_radiance_plain(scene: Scene, rec: PathRecord, seed, idx0, *, spp: int
     d_use = rec.prim.shape[1] if n_steps is None else min(n_steps, rec.prim.shape[1])
     kw = dict(max_depth=max_depth, rr_depth=rr_depth)
     for k in range(d_use):
-        if not bool(act.any()):
+        with span("m3t.wait"):
+            any_active = bool(act.any())
+        if not any_active:
             break
         # the forward's shading of the recorded hit, with the recorded
         # visibility in place of the shadow query
@@ -243,10 +246,11 @@ def _replay_grad_impl(scene, params, update_fn, rec, target, seed, idx0, ray_end
     def loss(s):
         L, pos, act0 = replay_radiance(s, rec, seed, idx0, spp=spp, max_depth=max_depth,
                                        rr_depth=rr_depth, ray_end=ray_end)
-        film = _splat(s, L, pos, act0, rfilter)
-        img = filmlib.develop(film)
-        msk = (film[..., 3] > 0.0)[..., None]
-        return torch.where(msk, (img - target) ** 2, 0.0).sum()
+        with span("m3t.replay.loss"):
+            film = _splat(s, L, pos, act0, rfilter)
+            img = filmlib.develop(film)
+            msk = (film[..., 3] > 0.0)[..., None]
+            return torch.where(msk, (img - target) ** 2, 0.0).sum()
 
     return _grad(scene, params, update_fn, loss)
 
@@ -272,10 +276,11 @@ def replay_grads_full(scene: Scene, params: dict, update_fn, target, seed, rec: 
     rows = _check_chunks(rec, chunk)
     acc = None
     for off in range(0, rows, chunk):
-        g = _replay_grad_impl(scene, params, update_fn, rec.rows(slice(off, off + chunk)), target,
-                              seed, off, min(off + chunk, n_rays), spp=spp, max_depth=max_depth,
-                              rr_depth=rr_depth, rfilter=rfilter)
-        acc = _add(acc, g)
+        with span("m3t.replay.chunk"):
+            g = _replay_grad_impl(scene, params, update_fn, rec.rows(slice(off, off + chunk)),
+                                  target, seed, off, min(off + chunk, n_rays), spp=spp,
+                                  max_depth=max_depth, rr_depth=rr_depth, rfilter=rfilter)
+            acc = _add(acc, g)
     return acc
 
 
@@ -317,7 +322,9 @@ def replay_grads_sorted(scene: Scene, params: dict, update_fn, target, seed, rec
     order = torch.argsort(-lens, stable=True)
     n_chunks = rows // chunk
     classes = _depth_classes(rec.prim.shape[1])
-    cls = [min(c for c in classes if c >= int(mx)) for mx in lens[order[::chunk]].tolist()]
+    with span("m3t.wait"):
+        longest = lens[order[::chunk]].tolist()
+    cls = [min(c for c in classes if c >= int(mx)) for mx in longest]
     kw = dict(spp=spp, max_depth=max_depth, rr_depth=rr_depth, ray_end=n_rays)
 
     def chunk_rows(j):
@@ -329,23 +336,28 @@ def replay_grads_sorted(scene: Scene, params: dict, update_fn, target, seed, rec
         film = filmlib.new_film(w, h, device=rec.prim.device)
         with torch.no_grad():
             for j in range(n_chunks):
-                sl, oj = chunk_rows(j)
-                L, pos, act0 = replay_radiance(scene, sl, seed, 0, idx=oj, n_steps=cls[j], **kw)
-                film = film + _splat(scene, L, pos, act0, rfilter)
-    img = filmlib.develop(film)
-    wgt = film[..., 3:4]
-    adj = torch.where(wgt > 0.0, 2.0 * (img - target) / torch.where(wgt > 0.0, wgt, 1.0),
-                      0.0).detach()
+                with span("m3t.replay.chunk"):
+                    sl, oj = chunk_rows(j)
+                    L, pos, act0 = replay_radiance(scene, sl, seed, 0, idx=oj, n_steps=cls[j],
+                                                   **kw)
+                    film = film + _splat(scene, L, pos, act0, rfilter)
+    with span("m3t.replay.loss"):
+        img = filmlib.develop(film)
+        wgt = film[..., 3:4]
+        adj = torch.where(wgt > 0.0, 2.0 * (img - target) / torch.where(wgt > 0.0, wgt, 1.0),
+                          0.0).detach()
 
     acc = None
     for j in range(n_chunks):
-        sl, oj = chunk_rows(j)
+        with span("m3t.replay.chunk"):
+            sl, oj = chunk_rows(j)
 
-        def inner(s, sl=sl, oj=oj, steps=cls[j]):
-            L, pos, act0 = replay_radiance(s, sl, seed, 0, idx=oj, n_steps=steps, **kw)
-            return (adj * _splat(s, L, pos, act0, rfilter)[..., :3]).sum()
+            def inner(s, sl=sl, oj=oj, steps=cls[j]):
+                L, pos, act0 = replay_radiance(s, sl, seed, 0, idx=oj, n_steps=steps, **kw)
+                with span("m3t.replay.loss"):
+                    return (adj * _splat(s, L, pos, act0, rfilter)[..., :3]).sum()
 
-        acc = _add(acc, _grad(scene, params, update_fn, inner))
+            acc = _add(acc, _grad(scene, params, update_fn, inner))
     return acc
 
 

@@ -34,6 +34,7 @@ from ..cuda_build import CudaLibrary, check_tensor, stream_of
 from ..render import fresnel as fr
 from ..render.emitter import _has_env_map
 from ..scene.types import BSDFKind
+from ..utils.profile import spanned
 
 # kernel launches made (plain ints, read by tests and the smoke test)
 forward_launches = 0
@@ -106,6 +107,7 @@ def _ptr(keep, name, x, dtype, shape, device):
     return x.data_ptr()
 
 
+@spanned("m3t.k5.pack")
 def pack_args(scene, rec, seed, idx0, *, spp: int, max_depth: int, rr_depth: int,
               ray_end=None, idx=None, n_steps: int | None = None) -> Packed:
     """ReplayArgs of a record chunk: row r is camera ray idx0 + r, or idx[r]
@@ -195,6 +197,7 @@ def _check_cuda(packed: Packed):
     return dev
 
 
+@spanned("m3t.k5.forward")
 def replay_forward(packed: Packed):
     """Forward kernel launch: L (N, 3) float32 of the packed chunk."""
     global forward_launches
@@ -217,6 +220,7 @@ def shared_fits(n_mats: int, n_emitters: int) -> bool:
     return 3 * (n_mats + n_emitters) * 4 <= LIBRARY.load().m3t_replay_max_shared()
 
 
+@spanned("m3t.k5.adjoint")
 def replay_adjoint(packed: Packed, dL, shared: bool | None = None):
     """Adjoint kernel launch: (d base_color (M, 3), d radiance (E, 3)) of
     sum(L * dL) over the packed chunk.  `shared` (default: whether the

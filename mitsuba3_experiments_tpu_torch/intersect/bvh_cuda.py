@@ -28,6 +28,7 @@ import ctypes
 import torch
 
 from ..cuda_build import CudaLibrary, check_tensor, stream_of, stream_scratch
+from ..utils.profile import span
 
 # kernel launches made (a plain int, read by tests and the smoke test)
 launches = 0
@@ -42,7 +43,9 @@ OVERFLOW = -2
 def check_overflow(face, depth: int) -> None:
     """Raises if any ray of a traversal (kernel or plain) overflowed its
     stack of `depth` entries; waits for the device."""
-    if bool((face == OVERFLOW).any()):
+    with span("m3t.wait"):
+        overflowed = bool((face == OVERFLOW).any())
+    if overflowed:
         raise RuntimeError(
             f"bvh8 traversal stack overflow (depth {depth}): the table was not "
             "built for this layout"

@@ -21,6 +21,7 @@ from ..core import math as m
 from ..core.records import Ray, SurfaceInteraction
 from ..scene.bvh8 import DEFAULT_LAYOUT
 from ..scene.types import Scene
+from ..utils.profile import count, span
 from . import bvh_cuda
 from .triangle import cross_fma, dot_fma, intersect_tri
 
@@ -217,11 +218,15 @@ def _n_tri_slots(scene):
 
 
 def _query(scene, ray, active, any_hit):
+    """One traversal (K1 launch on the card) over the rays, in the span
+    `m3t.k1`, its rays counted by `m3t.k1.rays`."""
     b = scene.bvh
-    return traverse(
-        b.unified, b.nodes.shape[0], ray.o.contiguous(), ray.d.contiguous(),
-        ray.maxt.contiguous(), active.contiguous(), any_hit, layout=b.layout,
-    )
+    count("m3t.k1.rays", ray.o.shape[0])
+    with span("m3t.k1"):
+        return traverse(
+            b.unified, b.nodes.shape[0], ray.o.contiguous(), ray.d.contiguous(),
+            ray.maxt.contiguous(), active.contiguous(), any_hit, layout=b.layout,
+        )
 
 
 def ray_intersect(scene: Scene, ray: Ray, active=None) -> SurfaceInteraction:
@@ -265,7 +270,9 @@ def ray_intersect_brute(scene: Scene, ray: Ray, active=None) -> SurfaceInteracti
 
 
 def _const3(v, like):
-    return torch.tensor(v, dtype=m.Float, device=like.device)
+    # a copy from the host that waits for the device on the card
+    with span("m3t.wait"):
+        return torch.tensor(v, dtype=m.Float, device=like.device)
 
 
 def _make_si(scene: Scene, ray: Ray, t, face, u, v, return_row: bool = False):

@@ -6,6 +6,7 @@ import numpy as np
 import torch
 
 from ..core import math as m
+from ..utils.profile import span
 
 
 def fresnel_dielectric(cos_theta_i, eta):
@@ -56,7 +57,9 @@ def fresnel_conductor(cos_theta_i, eta, k):
 def fresnel_diffuse_reflectance(eta, n_quad: int = 32):
     """Cosine-averaged Fresnel reflectance F_dr(eta) = int_0^1 2 c F(c; eta) dc
     by fixed midpoint quadrature."""
-    c = torch.as_tensor((np.arange(n_quad) + 0.5) / n_quad, dtype=m.Float, device=eta.device)
+    # a copy from the host that waits for the device on the card
+    with span("m3t.wait"):
+        c = torch.as_tensor((np.arange(n_quad) + 0.5) / n_quad, dtype=m.Float, device=eta.device)
     eta_b = eta[..., None]
     F = fresnel_dielectric(c.expand(eta_b.shape[:-1] + (n_quad,)), eta_b)[0]
     return torch.sum(2.0 * c * F, dim=-1) / n_quad

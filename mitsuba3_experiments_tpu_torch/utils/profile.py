@@ -8,8 +8,12 @@ cost analysis of a compiled function.  Here a call is run once under
   * `kernel_history(fn, *args)`: the device kernels the call launched (count,
     summed device time, the heaviest by time), its host operators and its
     peak device memory;
-  * `profile_range(name)`: a named range in the trace
-    (``torch.profiler.record_function``);
+  * `span(name)` (alias `profile_range`): a named range in the trace
+    (``torch.profiler.record_function``), and `count(name, n)`: a named
+    counter, which `drain()` returns and clears.  Both work only while
+    torch's profiler records, so the port's own spans and counters (the
+    ``m3t.*`` names) appear in every profiled run and cost one call and one
+    branch otherwise; `spanned(name)` puts each call of a function in one;
   * `trace(path)`: writes a Chrome trace of the enclosed code;
   * `benchmark(fn, *args)`: wall-clock seconds per call, the device
     synchronized around the timed loop;
@@ -19,16 +23,16 @@ cost analysis of a compiled function.  Here a call is run once under
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
 import tempfile
+import threading
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
-
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def device_label(device) -> str:
@@ -90,11 +94,57 @@ def kernel_history(fn, *args, **kwargs) -> dict:
     }
 
 
-@contextlib.contextmanager
-def profile_range(name: str):
-    """A named range in the profiler's trace (NVTX-style)."""
-    with record_function(name):
-        yield
+# the counters, kept only while the profiler records (autograd runs CUDA
+# backward on a thread of its own, hence the lock)
+_counts: dict = {}
+_counts_lock = threading.Lock()
+_profiling = torch.autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range in the profiler's trace (a `record_function` range,
+    which the chrome trace holds as a `user_annotation` event on the
+    kernels' clock) while torch's profiler records; otherwise a context that
+    does nothing.  It reads no device value."""
+    if not _profiling():
+        return _OFF
+    return record_function(name)
+
+
+profile_range = span
+
+
+def spanned(name: str):
+    """Decorator: each call of the function runs inside `span(name)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _profiling():
+                return fn(*args, **kwargs)
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds the host int `n` to counter `name` while torch's profiler
+    records.  A tensor is refused: reading it would wait for the device."""
+    if not _profiling():
+        return
+    if not isinstance(n, int):
+        raise TypeError(f"count({name!r}) takes a host int, got {type(n).__name__}")
+    with _counts_lock:
+        _counts[name] = _counts.get(name, 0) + n
+
+
+def drain() -> dict:
+    """The counters added since the last drain, which it clears."""
+    with _counts_lock:
+        out = dict(_counts)
+        _counts.clear()
+    return out
 
 
 @contextlib.contextmanager

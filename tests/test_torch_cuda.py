@@ -930,3 +930,99 @@ def test_replay_on_card_raises_for_other_keys(scene):
         p = {key: params.traverse(scene)[key].detach().clone().requires_grad_(True)}
         with pytest.raises(ValueError, match=key):
             replay.replay_radiance(params.update(scene, p), rec, 3, 0, **kw)
+
+
+SPAN_NAMES = {"m3t.record.batch", "m3t.bounce", "m3t.k1", "m3t.shade", "m3t.compact",
+              "m3t.wait", "m3t.splat", "m3t.replay.chunk", "m3t.k5.pack", "m3t.k5.forward",
+              "m3t.k5.adjoint", "m3t.replay.loss"}
+
+
+def _waits_and_syncs(fn):
+    """fn() run under the profiler (CPU activity: the port's spans are on)
+    and `torch.cuda.set_sync_debug_mode("warn")`: ({span name: count},
+    [(the last frames of the stack, the `m3t.*` spans open on the warning's
+    thread)]) for every sync but those of `set_sync_debug_mode` itself."""
+    import contextlib
+    import threading
+    import traceback
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from mitsuba3_experiments_tpu_torch.utils import profile as prof_mod
+
+    opened = threading.local()                 # the spans open on each thread
+    record_function = prof_mod.record_function
+
+    @contextlib.contextmanager
+    def tracked(name):
+        stack = opened.__dict__.setdefault("stack", [])
+        stack.append(name)
+        try:
+            with record_function(name):
+                yield
+        finally:
+            stack.pop()
+
+    syncs = []
+
+    def seen(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            stack = traceback.extract_stack()[:-1]
+            if not any(f.name == "set_sync_debug_mode" for f in stack):
+                syncs.append(([f"{f.filename.split('/')[-1]}:{f.lineno} {f.name}"
+                               for f in stack[-4:]], tuple(getattr(opened, "stack", ()))))
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(prof_mod, "record_function", tracked)
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    spans = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("m3t."):
+            spans[e.name()] = spans.get(e.name(), 0) + 1
+    return spans, syncs
+
+
+@pytest.mark.parametrize("mode", ["full", "sorted", "render"])
+def test_every_host_wait_lies_in_a_wait_span(scene, mode):
+    """One small record + replay step (full or sorted replay, as the
+    benchmark's d8 and d65 cells run them) or one render step: every
+    device->host wait that torch reports is reported inside an open
+    `m3t.wait` span (on autograd's own thread for K5's backward), one for
+    one."""
+    from mitsuba3_experiments_tpu_torch.integrators import (
+        record_full_pipelined, render_pipelined, replay_grads)
+    from mitsuba3_experiments_tpu_torch.scene import params
+
+    w, h = scene.camera.resolution
+    n = w * h * 2
+    pad = -(-n // 1024) * 1024
+    target = torch.full((h, w, 3), 0.25, device="cuda")
+    diff = {k: params.traverse(scene)[k] for k in ("materials.base_color", "emitters.radiance")}
+
+    def step():
+        if mode == "render":
+            return render_pipelined(scene, seed=3, spp=2, max_depth=8, rfilter="tent")
+        rec, film = record_full_pipelined(scene, 3, n, spp=2, max_depth=8, rr_depth=4,
+                                          pad_to=pad, return_film=True)
+        return replay_grads(scene, diff, params.update, target, 3, rec, n, chunk=1024, spp=2,
+                            max_depth=8, rr_depth=4, mode=mode, film=film)
+
+    step()                                     # builds, first allocations
+    spans, syncs = _waits_and_syncs(step)
+    names = SPAN_NAMES - ({"m3t.replay.chunk", "m3t.k5.pack", "m3t.k5.forward",
+                           "m3t.k5.adjoint", "m3t.replay.loss"} if mode == "render" else set())
+    uncovered = [s for s in syncs if "m3t.wait" not in s[1]]
+    report = (f"{len(syncs)} syncs, {spans.get('m3t.wait', 0)} m3t.wait spans; "
+              f"outside a wait span: {uncovered}")
+    print(f"[{mode}] {report}; spans {spans}")
+    assert set(spans) >= names, sorted(names - set(spans))
+    assert len(syncs) == spans["m3t.wait"] > 0 and not uncovered, report
