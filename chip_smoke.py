@@ -6,13 +6,14 @@
 Phases, each of which fails the run (non-zero exit) when it goes wrong:
 
  1. needs a CUDA card; prints `nvidia-smi`'s name and power limit;
- 2. builds the five kernel sources, one nvcc each, and the host library
+ 2. builds the six kernel sources, one nvcc each, and the host library
     (g++ on native/*.cpp), all started together: K1 the BVH8 traversal in
     persistent warps (csrc/bvh_traverse.cu), K2 the fused MLP on bf16
     tensor cores (csrc/fused_mlp.cu), K3 the single-pass look-back scan
     (csrc/prefix_sum.cu), K4 the dependent gather chain in coalesced row
     loads (csrc/gather_chain.cu), K5 the path replay's forward and adjoint
-    (csrc/replay_path.cu); prints their ptxas lines (registers, stack,
+    (csrc/replay_path.cu), K6 the wavefront's shading
+    (csrc/shade_wavefront.cu); prints their ptxas lines (registers, stack,
     spills) and each build's seconds;
  3. holds the kernel against its plain torch version on the same 65,536
     seeded rays, closest hit and any hit, into a 100k-triangle blob and the
@@ -130,6 +131,15 @@ Phases, each of which fails the run (non-zero exit) when it goes wrong:
     13, 13b, 14, 19a, 20b and 21 replay on K5: each prints its K5 launches
     (forward + adjoint) beside K1's and fails if it ran none or ran the
     plain replay;
+12d. K6, the wavefront's shading kernel, alone on the main path's first
+    bounce (the first 2^21 camera rays and their K1 closest hits) against
+    the plain `_shade` on the same card tensors: the discrete fields equal
+    on every lane, the floats within rtol 1e-4 / atol 1e-6 where
+    trace_rays reads them (their bit-equal shares printed); both timed with
+    CUDA events in turns, K6 beside its bound (k6_work: lane state, face
+    rows, operations as K5_OPS_* count them); nvcc's registers and spills
+    of K6 and K5.  Phases 4, 12 and 13 fail if their wavefront did not
+    shade on K6;
 13b. the truncated replay: the stand-in's camera at 32x18, spp 1, depth
     32, chunks of 64 rows — at least one chunk's longest path must be at
     most half the depth; replay_grads(mode="trunc"), which is the full
@@ -232,7 +242,7 @@ and 17a, 17b, each entry point of 19a and 19b's two ranks, the render of
 20a, each step of 20b and the bench's timed calls in 21 (counted by the
 bench's own processes and read off its "#" lines) — the JSON line gives the
 sum of all but the first — K5's from each phase that replays (6b, 12,
-13, 13b, 14, 19a, 20b, 21's headline), K2's
+13, 13b, 14, 19a, 20b, 21's headline), K6's from phase 12's fwd+bwd, K2's
 from the training of phase 8 and the NRC training and render (8b), summed, K3's
 from the ops entry point of phase 9 (no path of the renderer or trainer
 scans: the CDFs are built on the host, as in the JAX package), K4's from
@@ -242,16 +252,17 @@ the render's camera batch (phase 5, which
 also prints the sum over the pass; phase 3 prints them at 65,536 rays), K2
 on 524,288 field rows (phase 7), K3 on the stand-in's 1,964,564 face areas
 (phase 9), K4 at 65,536 lanes x 64 steps (phase 11), K5 (forward +
-adjoint) on phase 12c's depth-8 chunk of 131,072 rows.  Beside them,
+adjoint) on phase 12c's depth-8 chunk of 131,072 rows, K6 on phase 12d's
+first bounce of 2,097,152 lanes.  Beside them,
 `bound_ms`, the least time the card could take for the same work: the
 larger of the bytes the work must move (each input read once, each output
-written once; for K1, K4 and K5 the distinct table rows this run's data
-reaches) over 3.35 TB/s and its operations over the peak rate of their
+written once; for K1, K4, K5 and K6 the distinct table rows this run's
+data reaches) over 3.35 TB/s and its operations over the peak rate of their
 type (float32 67 TFLOP/s, bf16 989 TFLOP/s), and
 `library_ms`, one PyTorch call computing the same function where there is
 one (torch.cumsum for K3; none traverses a BVH, runs the whole MLP,
-walks a dependent chain or replays a path).  `ms`, `plain_ms` and `library_ms` are CUDA
-events around calls made through the wrappers as a caller makes them (K1
+shades a bounce, walks a dependent chain or replays a path).  `ms`,
+`plain_ms` and `library_ms` are CUDA events around calls made through the wrappers as a caller makes them (K1
 with its overflow check), so they include the host's launch time where a
 call is shorter than its launch.  `device_ms` is the kernel's own device
 time: the same calls queued behind a device sleep, K1 without its
@@ -329,6 +340,15 @@ K5_OPS_SAMPLE_COMMON, K5_OPS_EVAL_COMMON = 22, 22
 K5_OPS_DERIV, K5_OPS_DERIV_MASK, K5_OPS_DERIV_EMITTER = 50, 85, 6
 K5_FACE_BYTES = 29 * 4    # the face row's floats that _make_si reads
 K5_ENTRY_BYTES = 13       # a record entry: prim, u, v (4 bytes each) and occl (1)
+# K6 (csrc/shade_lane.h): a lane's state in (85 bytes) and _shade's fields out
+# (111); a shaded lane's two spawned rays (spawn_ray: 13 operations each;
+# spawn_ray_to: 16 more for the distance, direction and maxt), read off as
+# K5_OPS_* are
+K6_LANE_BYTES = 85 + 111
+K6_OPS_SPAWN = 2 * 13 + 16
+K6_SOURCE = "mitsuba3_experiments_tpu_torch/csrc/shade_wavefront.cu"
+K6_REPLACES = ("no Pallas kernel: XLA's fusion of persistent._shade in _engine_step, "
+               "mitsuba3_experiments_tpu/integrators/persistent.py")
 # K5's launches (forward, adjoint) on the main path, by phase: each phase
 # that replays adds its own (note_k5); phase 12c's comparisons are not counted
 K5_BY_PHASE: dict = {}
@@ -478,17 +498,18 @@ def render_queries(scene, integrator):
 
 
 def build_all():
-    """Phase 2: one nvcc per kernel source, all started together."""
+    """Phase 2: one nvcc per kernel source, all started together; returns
+    {library name: its ptxas lines}."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from mitsuba3_experiments_tpu_torch.integrators import replay_cuda
+    from mitsuba3_experiments_tpu_torch.integrators import replay_cuda, shade_cuda
     from mitsuba3_experiments_tpu_torch.intersect import bvh_cuda
     from mitsuba3_experiments_tpu_torch.models import fused_mlp_cuda
     from mitsuba3_experiments_tpu_torch.ops import gather_probe_cuda, prefix_sum_cuda
     from mitsuba3_experiments_tpu_torch.scene import native
 
     libs = [bvh_cuda.LIBRARY, fused_mlp_cuda.LIBRARY, prefix_sum_cuda.LIBRARY,
-            gather_probe_cuda.LIBRARY, replay_cuda.LIBRARY, native.LIBRARY]
+            gather_probe_cuda.LIBRARY, replay_cuda.LIBRARY, shade_cuda.LIBRARY, native.LIBRARY]
     t0 = time.perf_counter()
 
     def build(lib):
@@ -497,17 +518,20 @@ def build_all():
 
     with ThreadPoolExecutor(len(libs)) as pool:
         built = list(pool.map(build, libs))
-    print(f"[build] {len(libs) - 1} kernels and the host library in "
+    print(f"[build] {len(libs) - 1} kernel sources and the host library in "
           f"{time.perf_counter() - t0:.2f} s")
-    for so, dt in built[:-1]:
+    ptxas = {}
+    for lib, (so, dt) in zip(libs[:-1], built[:-1]):
         print(f"[build] {so}: {dt:.2f} s")
         with open(so + ".log") as f:
-            for line in f:
-                if "registers" in line or "spill" in line or "Compiling entry" in line:
-                    print(f"[build] {line.strip()}")
+            ptxas[lib.name] = [line.strip() for line in f if "registers" in line
+                               or "spill" in line or "Compiling entry" in line]
+        for line in ptxas[lib.name]:
+            print(f"[build] {line}")
     print(f"[build] host library (g++, native/*.cpp) {built[-1][0]}: {built[-1][1]:.2f} s")
     for lib in libs:
         lib.load()
+    return ptxas
 
 
 def field_inputs(field, cfg, n, device, seed=11):
@@ -619,12 +643,13 @@ def phase_k2_sizes(device, card, field, cfg):
 
 def counters():
     """(name, module, attribute) of every launch and plain-call count."""
-    from mitsuba3_experiments_tpu_torch.integrators import replay, replay_cuda
+    from mitsuba3_experiments_tpu_torch.integrators import replay, replay_cuda, shade_cuda
     from mitsuba3_experiments_tpu_torch.intersect import bvh_cuda, bvh_torch
     from mitsuba3_experiments_tpu_torch.models import fused_mlp, fused_mlp_cuda, mlp
     from mitsuba3_experiments_tpu_torch.ops import gather_probe, gather_probe_cuda, prefix_sum_cuda
 
     return (("k1", bvh_cuda, "launches"), ("plain_traverse", bvh_torch, "calls"),
+            ("k6", shade_cuda, "launches"),
             ("k5_fwd", replay_cuda, "forward_launches"),
             ("k5_adj", replay_cuda, "adjoint_launches"), ("plain_replay", replay, "plain_calls"),
             ("k2", fused_mlp_cuda, "launches"), ("plain_mlp", mlp, "calls"),
@@ -1003,6 +1028,7 @@ def fwd_bwd(scene, target, spp, depth, card, label):
         check(float(gk.abs().max()) > 0.0, f"{label}: gradient of {k} is zero")
     check(counts["k1"] > 0, f"{label}: the recorder did not launch K1")
     check(counts["plain_traverse"] == 0, f"{label}: the recorder ran the plain traversal")
+    check(counts["k6"] > 0, f"{label}: the recorder did not shade with K6")
     note_k5(label, counts, card)
     return rec, g, counts, dt
 
@@ -1031,6 +1057,7 @@ def phase_production(scene, integrator, card):
           f"{w * h * SPP / fwd_s:.1f} camera rays/s, counts {counts} ({card})")
     check(counts["k1"] > 0 and counts["plain_traverse"] == 0,
           "render_persistent did not run on K1 alone")
+    check(counts["k6"] > 0, "render_persistent did not shade with K6")
     ref = render(scene, integrator, spp=SPP, spp_per_pass=SPP, rfilter="tent")
     close = torch.isclose(img, ref, rtol=1e-4, atol=1e-5).all(dim=-1)
     err = float((img - ref).abs().max())
@@ -1089,12 +1116,39 @@ def phase_production(scene, integrator, card):
     return img, counts, err_k1, grads, w * h * SPP / fb_s, rec
 
 
+def vertex_ops(scene, faces, shaded, lit):
+    """The float32 operations of one walk over hit vertices on `faces`
+    (int64), as K5_OPS_* count them: each vertex is charged its own
+    material's kind (the nested one under a mask), texture and emitter; the
+    `shaded` ones (short of max_depth) the shading; those also `lit` (NEE
+    neither occluded in the record nor inactive) with a smooth material the
+    BSDF's evaluation.  Returns (operations of each vertex, emitter hit,
+    mask)."""
+    import torch
+
+    frow = scene.geometry.face_packed[faces]
+    mat = frow[:, 25].contiguous().view(torch.int32).long().clamp(min=0)
+    emitter = frow[:, 26].contiguous().view(torch.int32) >= 0
+    mats = scene.materials
+    is_mask = mats.kind[mat] == 7
+    eff = torch.where(is_mask, mats.nested_id[mat].long().clamp(min=0), mat)
+    kind = mats.kind[eff].long()
+    nee = shaded & ((mats.flags[mat] & 15) != 0) & lit
+    textured = (mats.tex_id[eff] >= 0).long() + (is_mask & (mats.tex_id[mat] >= 0)).long()
+    ops_of = lambda t: torch.tensor(t, dtype=torch.int64, device=kind.device)[kind]  # noqa: E731
+    search = int(np.ceil(np.log2(scene.emitters.em_face_packed.shape[0] + 1)))
+    walk = K5_OPS_HIT + emitter * K5_OPS_EMITTER_HIT + shaded * (
+        K5_OPS_SHADE + search + K5_OPS_SAMPLE_COMMON + ops_of(K5_OPS_SAMPLE)
+        + textured * K5_OPS_TEXTURE + is_mask * K5_OPS_MASK) + nee * (
+        K5_OPS_EVAL_COMMON + ops_of(K5_OPS_EVAL) + is_mask * K5_OPS_MASK_EVAL)
+    return walk, emitter, is_mask
+
+
 def k5_work(scene, sl, kw):
     """The float32 operations and bytes that K5's two functions need on a
     chunk, counted from its record: the forward walks each row's path once
     for L; the adjoint walks it once more and adds the derivative terms.
-    Each vertex is charged its own material's kind (the nested one under a
-    mask), texture, emitter and NEE, as K5_OPS_* count them.  Each function
+    Each vertex is charged as `vertex_ops` counts it.  Each function
     reads the record entries of the hit vertices, the face rows they hit
     (distinct faces), the rows' ray indices when sorted and L or dL; the
     adjoint writes the two tables.  The escapes (at most one a row), the
@@ -1110,29 +1164,124 @@ def k5_work(scene, sl, kw):
     hit = (prim >= 0) & (ids < kw["ray_end"])[:, None]
     col = torch.nonzero(hit)[:, 1]
     faces = prim[hit].long()
-    frow = scene.geometry.face_packed[faces]
-    mat = frow[:, 25].contiguous().view(torch.int32).long().clamp(min=0)
-    emitter = frow[:, 26].contiguous().view(torch.int32) >= 0
-    mats = scene.materials
-    is_mask = mats.kind[mat] == 7
-    eff = torch.where(is_mask, mats.nested_id[mat].long().clamp(min=0), mat)
-    kind = mats.kind[eff].long()
     shaded = col + 1 < kw["max_depth"]
-    nee = shaded & ((mats.flags[mat] & 15) != 0) & ~sl.occl[:, :steps][hit]
-    textured = (mats.tex_id[eff] >= 0).long() + (is_mask & (mats.tex_id[mat] >= 0)).long()
-    ops_of = lambda t: torch.tensor(t, dtype=torch.int64, device=kind.device)[kind]  # noqa: E731
-    search = int(np.ceil(np.log2(scene.emitters.em_face_packed.shape[0] + 1)))
-    walk = K5_OPS_HIT + emitter * K5_OPS_EMITTER_HIT + shaded * (
-        K5_OPS_SHADE + search + K5_OPS_SAMPLE_COMMON + ops_of(K5_OPS_SAMPLE)
-        + textured * K5_OPS_TEXTURE + is_mask * K5_OPS_MASK) + nee * (
-        K5_OPS_EVAL_COMMON + ops_of(K5_OPS_EVAL) + is_mask * K5_OPS_MASK_EVAL)
+    walk, emitter, is_mask = vertex_ops(scene, faces, shaded, ~sl.occl[:, :steps][hit])
     deriv = shaded * (K5_OPS_DERIV + is_mask * K5_OPS_DERIV_MASK) + emitter * K5_OPS_DERIV_EMITTER
     ops = int((2 * walk + deriv).sum())
     hits, distinct = int(faces.numel()), int(torch.unique(faces).numel())
     per_kernel = hits * K5_ENTRY_BYTES + distinct * K5_FACE_BYTES + rows * 12 \
         + (rows * 8 if kw.get("idx") is not None else 0)
+    mats = scene.materials
     tables = (mats.base_color.shape[0] + scene.emitters.radiance.shape[0]) * 12
     return hits, distinct, ops, 2 * per_kernel + tables
+
+
+def k6_work(scene, lanes, out, max_depth):
+    """The float32 operations and bytes that K6 needs on one bounce: each
+    hit lane walks its vertex once as `vertex_ops` counts it (its NEE
+    evaluated where the kernel's `active_em` is set: K6 evaluates it before
+    the shadow test), a shaded lane its two spawned rays besides; each lane
+    reads its state and writes _shade's fields once (K6_LANE_BYTES), and
+    the face rows of the distinct faces hit are read once.  Escapes and the
+    material, texture and emitter tables are left out, which only lowers
+    the bound.  Returns (hit lanes, distinct faces, operations, bytes)."""
+    import torch
+
+    face, depth = lanes[2], lanes[8]
+    hit = face >= 0
+    faces = face[hit].long()
+    shaded = depth[hit] < max_depth
+    walk, _, _ = vertex_ops(scene, faces, shaded, out.active_em[hit])
+    ops = int((walk + shaded * K6_OPS_SPAWN).sum())
+    hits, distinct = int(faces.numel()), int(torch.unique(faces).numel())
+    return hits, distinct, ops, face.shape[0] * K6_LANE_BYTES + distinct * K5_FACE_BYTES
+
+
+def phase_k6(scene, card, ptxas):
+    """Phase 12d: K6 alone on the main path's first bounce (the first 2^21
+    camera rays of the 1280x720 spp-4 frame and their K1 closest hits)
+    against the plain `_shade` on the same card tensors (the discrete
+    fields equal on every lane, the floats within rtol 1e-4 / atol 1e-6
+    where trace_rays reads them), both timed with CUDA events in turns
+    (plain, kernel, kernel, plain), K6 beside its bound (k6_work); then
+    nvcc's registers and spills of K6 and K5.  Returns the numbers for the
+    kernels' JSON line."""
+    import torch
+
+    from mitsuba3_experiments_tpu_torch.core.records import Ray
+    from mitsuba3_experiments_tpu_torch.integrators import persistent, shade_cuda
+    from mitsuba3_experiments_tpu_torch.intersect.bvh_torch import _query
+    from mitsuba3_experiments_tpu_torch.render import sensor as sensorlib
+
+    n = persistent.N_LANES
+    dev = scene.device
+    kw = dict(max_depth=MAX_DEPTH, rr_depth=4)
+    with torch.no_grad():
+        idx = torch.arange(n, dtype=torch.int64, device=dev)
+        ray = sensorlib.sample_ray(scene.camera, persistent.ray_positions(scene.camera, 0, idx,
+                                                                          SPP))
+        o, d = ray.o.contiguous(), ray.d.contiguous()
+        every = torch.ones(n, dtype=torch.bool, device=dev)
+        t, face, u, v = _query(scene, Ray.make(o, d), every, False)
+        ones = torch.ones(n, device=dev)
+        lanes = (d, t, face, u, v, torch.zeros((n, 3), device=dev),
+                 torch.ones((n, 3), device=dev), ones, torch.ones(n, dtype=torch.int32,
+                                                                   device=dev),
+                 o, ones.clone(), every.clone(), idx)
+        packed = shade_cuda.pack_scene(scene, 0, **kw)
+
+        def kernel():
+            return shade_cuda.shade(packed, *lanes)
+
+        def plain():
+            return persistent._shade(scene, 0, every, o, *lanes, **kw)
+
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        worst, shares = 0.0, {}
+        for field, on in (("L", None), ("cont", None), ("active_em", None), ("f", "cont"),
+                          ("eta", "cont"), ("p", "cont"), ("pdf", "cont"), ("delta", "cont"),
+                          ("next_o", "cont"), ("next_d", "cont"), ("nee_L", "active_em"),
+                          ("shadow_o", "active_em"), ("shadow_d", "active_em"),
+                          ("shadow_maxt", "active_em")):
+            a, b = getattr(got, field), getattr(ref, field)
+            if on is not None:
+                a, b = a[getattr(ref, on)], b[getattr(ref, on)]
+            if b.dtype == torch.bool:
+                check(bool(torch.equal(a, b)), f"12d: K6's {field} differs from _shade's")
+                continue
+            same = a.view(torch.int32) == b.view(torch.int32)
+            shares[field] = float((same.all(1) if same.dim() > 1 else same).float().mean())
+            worst = max(worst, float((a - b).abs().max()))
+            check(bool(torch.allclose(a, b, rtol=1e-4, atol=1e-6)),
+                  f"12d: K6's {field} differs from _shade's beyond rtol 1e-4 / atol 1e-6")
+        print(f"[12d] K6 against _shade on {n} lanes ({int(ref.cont.sum())} go on, "
+              f"{int(ref.active_em.sum())} shoot a shadow ray): bit-equal shares "
+              + ", ".join(f"{k} {v:.6f}" for k, v in shares.items())
+              + f"; max abs err {worst:.3e}")
+        t_plain, t_k, dev_k = [], [], []
+        for turn in ("plain", "kernel", "kernel", "plain"):
+            if turn == "plain":
+                t_plain.append(cuda_ms(plain, 3))
+            else:
+                t_k.append(cuda_ms(kernel, 10))
+                dev_k.append(device_ms(kernel, 10))
+        hits, distinct, ops, nbytes = k6_work(scene, lanes, got, MAX_DEPTH)
+    bound = max(nbytes / HBM_BYTES_S, ops / F32_OPS_S) * 1e3
+    by = "bytes" if nbytes / HBM_BYTES_S >= ops / F32_OPS_S else "operations"
+    ms, dev_ms = float(np.mean(t_k)), float(np.mean(dev_k))
+    print(f"[12d] in turns (plain, kernel, kernel, plain): plain _shade {t_plain[0]:.3f}, "
+          f"{t_plain[1]:.3f} ms; K6 {t_k[0]:.4f}, {t_k[1]:.4f} ms (device {dev_k[0]:.4f}, "
+          f"{dev_k[1]:.4f}) ({card})")
+    print(f"[12d] bound: {n} lanes ({hits} hits on {distinct} faces), {ops / max(hits, 1):.1f} "
+          f"float32 operations a hit, {nbytes / 1e6:.2f} MB = {nbytes / HBM_BYTES_S * 1e3:.4f} ms, "
+          f"{ops / 1e9:.3f} G float32 operations = {ops / F32_OPS_S * 1e3:.4f} ms: {bound:.4f} ms "
+          f"by {by}; K6 {ms:.4f} ms (device {dev_ms:.4f}), at {bound / dev_ms:.4f} of it; plain "
+          f"{np.mean(t_plain) / ms:.1f}x K6")
+    for name in ("shade_wavefront", "replay_path"):
+        print(f"[12d] nvcc {name}: " + " | ".join(ptxas.get(name, [])))
+    return {"err": worst, "ms": ms, "device_ms": dev_ms, "plain_ms": float(np.mean(t_plain)),
+            "bound_ms": bound, "bound_by": by}
 
 
 def k5_case(name, scene, sl, kw, card, seed_dl):
@@ -2542,7 +2691,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
 
     # ---- phase 2: build ----------------------------------------------------
-    build_all()
+    ptxas = build_all()
 
     # ---- phase 3: kernel against plain ------------------------------------
     blob = flagship.placeholder_mesh(7, 100_000)
@@ -2711,6 +2860,9 @@ def main() -> int:
     k5 = phase_k5(scene, card, rec8, rec65, target)
     del rec8, rec65
 
+    # ---- phase 12d: K6 alone on the main path's first bounce, timed, bound --
+    k6 = phase_k6(scene, card, ptxas)
+
     # ---- phase 13b: the truncated replay against the full one --------------
     k1_trunc = phase_trunc(scene, card)
 
@@ -2799,6 +2951,10 @@ def main() -> int:
          "launches": k5_launches, "max_abs_err": k5["err"], "ms": k5["ms"],
          "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
          "library_ms": None, "device_ms": k5["device_ms"]},
+        {"name": "shade_wavefront", "route": "cuda", "source": K6_SOURCE,
+         "replaces": K6_REPLACES, "launches": prod["k6"], "max_abs_err": k6["err"],
+         "ms": k6["ms"], "plain_ms": k6["plain_ms"], "bound_ms": k6["bound_ms"],
+         "bound_by": k6["bound_by"], "library_ms": None, "device_ms": k6["device_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,13 +3,15 @@ with a plain C interface, loaded with ctypes.
 
 Every kernel source under csrc/ is compiled at its first CUDA use (never at
 import: a machine without a card has no nvcc) into build/torch_kernels/ at
-the repository root.  The library's file name carries a hash of the source
-and the flags, so an edit rebuilds it; nvcc's output (ptxas registers,
-spills, shared memory) goes to `<library>.log`.  A failed build raises.
+the repository root.  The library's file name carries a hash of the source,
+the headers of csrc/ and the flags, so an edit rebuilds it; nvcc's output
+(ptxas registers, spills, shared memory) goes to `<library>.log`.  A failed
+build raises.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import subprocess
@@ -43,10 +45,13 @@ class CudaLibrary:
         self.handle = None
 
     def path(self) -> str:
-        """Where the build of the current source and flags lives."""
-        with open(self.source, "rb") as f:
-            key = hashlib.sha256(f.read() + " ".join(self.flags).encode()).hexdigest()[:16]
-        return os.path.join(BUILD_DIR, f"{self.name}_{key}.so")
+        """Where the build of the current source, csrc/'s headers and the
+        flags lives."""
+        h = hashlib.sha256(" ".join(self.flags).encode())
+        for src in [self.source] + sorted(glob.glob(os.path.join(CSRC, "*.h"))):
+            with open(src, "rb") as f:
+                h.update(f.read())
+        return os.path.join(BUILD_DIR, f"{self.name}_{h.hexdigest()[:16]}.so")
 
     def build(self) -> str:
         """Compile unless this source's build exists; returns the path."""

@@ -8,9 +8,11 @@ Hopper schedule instead:
 
   * camera rays go in batches of at most `n_lanes`;
   * each bounce of a batch is one closest-hit launch of the traversal
-    kernel (K1, csrc/bvh_traverse.cu) over the live lanes, then `_shade`
-    (emission with MIS, the NEE sample, the BSDF sample, Russian roulette),
-    then one any-hit launch over the lanes whose NEE is active;
+    kernel (K1, csrc/bvh_traverse.cu) over the live lanes, then the shading
+    (emission with MIS, the NEE sample, the BSDF sample, Russian roulette:
+    one launch of K6, csrc/shade_wavefront.cu, on the card; its plain
+    version `_shade` on the CPU), then one any-hit launch over the lanes
+    whose NEE is active;
   * the bounce commits, the finished rays write their radiance into a
     deferred per-ray buffer `rayL` at their camera-ray index, and the live
     lanes are compacted, so the next launch covers only survivors;
@@ -45,7 +47,8 @@ from ..render.emitter import (
     sample_emitter_direction,
 )
 from ..scene.types import Scene
-from ..utils.profile import span, spanned
+from ..utils.profile import count, span, spanned
+from . import shade_cuda
 from .common import mis_weight
 from .wavefront import _rand
 
@@ -192,6 +195,9 @@ def trace_rays(scene: Scene, seed, idx0: int, n_rows: int, n_valid: int, *, spp:
     dev = scene.device
     rayL = torch.zeros((n_rows, 3), dtype=m.Float, device=dev)
     kw = dict(max_depth=max_depth, rr_depth=rr_depth)
+    # the card shades with K6, its scene packed once for the call
+    packed = shade_cuda.pack_scene(scene, seed, **kw) if dev.type == "cuda" and n_valid > 0 \
+        else None
     for start in range(0, n_valid, n_lanes):
         with span("m3t.record.batch"):
             row = torch.arange(start, min(start + n_lanes, n_valid), dtype=torch.int64,
@@ -217,8 +223,13 @@ def trace_rays(scene: Scene, seed, idx0: int, n_rows: int, n_valid: int, *, spp:
                         rec.prim[row, col] = face
                         rec.u[row, col] = torch.where(hit, u, 0.0)
                         rec.v[row, col] = torch.where(hit, v, 0.0)
-                    sh = _shade(scene, seed, every, o, d, t, face, u, v, L, f, eta, depth,
-                                prev_p, prev_pdf, prev_delta, idx, **kw)
+                    count("m3t.shade.lanes", n)
+                    if packed is None:
+                        sh = _shade(scene, seed, every, o, d, t, face, u, v, L, f, eta, depth,
+                                    prev_p, prev_pdf, prev_delta, idx, **kw)
+                    else:
+                        sh = shade_cuda.shade(packed, d, t, face, u, v, L, f, eta, depth, prev_p,
+                                              prev_pdf, prev_delta, idx)
                     with span("m3t.wait"):
                         em = torch.nonzero(sh.active_em).squeeze(1)
                     unoccluded = sh.active_em.clone()

@@ -116,10 +116,6 @@ def pack_args(scene, rec, seed, idx0, *, spp: int, max_depth: int, rr_depth: int
     scene or layout K5 does not read raises."""
     dev = rec.prim.device
     n, D = rec.prim.shape
-    mats, em, tex, g = scene.materials, scene.emitters, scene.textures, scene.geometry
-    unknown = sorted(set(mats.kinds_present) - set(range(BSDFKind.COUNT)))
-    if unknown:
-        raise ValueError(f"K5 has no BSDF kind {unknown}")
     keep: list = []
     a = ReplayArgs()
     prim = rec.prim.contiguous()
@@ -135,14 +131,28 @@ def pack_args(scene, rec, seed, idx0, *, spp: int, max_depth: int, rr_depth: int
     a.n_steps = D if n_steps is None else max(0, min(int(n_steps), D))
     a.seed = int(seed) & 0xFFFFFFFF
     a.spp, a.max_depth, a.rr_depth = int(spp), int(max_depth), int(rr_depth)
+    pack_scene(a, keep, scene, dev)
+    return Packed(a, keep)
+
+
+def pack_scene(a: ReplayArgs, keep: list, scene, dev, extra_consts=()) -> None:
+    """Fills the scene's fields of `a` (the camera and emitter constants,
+    then `extra_consts`, 1-element tensors, in `consts`; the geometry,
+    material, texture and emitter tables; each material's F_dr) from the
+    tensors of `scene` on `dev`, kept alive in `keep`.  A scene or layout
+    that K5's device functions do not read raises."""
+    mats, em, tex, g = scene.materials, scene.emitters, scene.textures, scene.geometry
+    unknown = sorted(set(mats.kinds_present) - set(range(BSDFKind.COUNT)))
+    if unknown:
+        raise ValueError(f"K5 has no BSDF kind {unknown}")
     a.width, a.height = scene.camera.resolution
 
     consts = torch.cat([
         scene.camera.to_world.detach().reshape(16), scene.camera.tan_half_fov.reshape(2),
         em.env_radiance.reshape(3), em.env_select_p.reshape(1), em.face_dist.total.reshape(1),
-        em.env_dist.total.reshape(1),
+        em.env_dist.total.reshape(1), *extra_consts,
     ]).to(torch.float32).contiguous()
-    a.consts = _ptr(keep, "consts", consts, torch.float32, (N_CONSTS,), dev)
+    a.consts = _ptr(keep, "consts", consts, torch.float32, (N_CONSTS + len(extra_consts),), dev)
 
     F = g.face_packed.shape[0]
     a.face_packed = _ptr(keep, "geometry.face_packed", g.face_packed, torch.float32, (F, 32),
@@ -187,7 +197,6 @@ def pack_args(scene, rec, seed, idx0, *, spp: int, max_depth: int, rr_depth: int
     a.env_weights = _ptr(keep, "env_dist.weights", ed.weights, torch.float32, (he, we), dev)
     a.env_row_cdf = _ptr(keep, "env_dist.row_cdf", ed.row_cdf, torch.float32, (he,), dev)
     a.env_col_cdf = _ptr(keep, "env_dist.col_cdf", ed.col_cdf, torch.float32, (he, we), dev)
-    return Packed(a, keep)
 
 
 def _check_cuda(packed: Packed):

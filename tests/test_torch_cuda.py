@@ -932,9 +932,9 @@ def test_replay_on_card_raises_for_other_keys(scene):
             replay.replay_radiance(params.update(scene, p), rec, 3, 0, **kw)
 
 
-SPAN_NAMES = {"m3t.record.batch", "m3t.bounce", "m3t.k1", "m3t.shade", "m3t.compact",
-              "m3t.wait", "m3t.splat", "m3t.replay.chunk", "m3t.k5.pack", "m3t.k5.forward",
-              "m3t.k5.adjoint", "m3t.replay.loss"}
+SPAN_NAMES = {"m3t.record.batch", "m3t.bounce", "m3t.k1", "m3t.shade", "m3t.shade.pack",
+              "m3t.compact", "m3t.wait", "m3t.splat", "m3t.replay.chunk", "m3t.k5.pack",
+              "m3t.k5.forward", "m3t.k5.adjoint", "m3t.replay.loss"}
 
 
 def _waits_and_syncs(fn):
@@ -997,7 +997,8 @@ def test_every_host_wait_lies_in_a_wait_span(scene, mode):
     benchmark's d8 and d65 cells run them) or one render step: every
     device->host wait that torch reports is reported inside an open
     `m3t.wait` span (on autograd's own thread for K5's backward), one for
-    one."""
+    one.  The shading (K6) waits for nothing; its scene's packing once a
+    step, for the F_dr nodes."""
     from mitsuba3_experiments_tpu_torch.integrators import (
         record_full_pipelined, render_pipelined, replay_grads)
     from mitsuba3_experiments_tpu_torch.scene import params
@@ -1026,3 +1027,148 @@ def test_every_host_wait_lies_in_a_wait_span(scene, mode):
     print(f"[{mode}] {report}; spans {spans}")
     assert set(spans) >= names, sorted(names - set(spans))
     assert len(syncs) == spans["m3t.wait"] > 0 and not uncovered, report
+    assert not [s for s in syncs if "m3t.shade" in s[1]], report
+    assert spans["m3t.shade.pack"] == 1
+    assert sum("m3t.shade.pack" in s[1] for s in syncs) == 1, report
+
+
+# ---- K6: the wavefront's shading kernel --------------------------------------
+
+# where trace_rays reads each field of _shade: every lane, or the lanes that go
+# on (`cont`) or shoot a shadow ray (`active_em`)
+SHADE_READ_ON = {"L": None, "cont": None, "active_em": None,
+                 "f": "cont", "eta": "cont", "p": "cont", "pdf": "cont", "delta": "cont",
+                 "next_o": "cont", "next_d": "cont", "nee_L": "active_em",
+                 "shadow_o": "active_em", "shadow_d": "active_em", "shadow_maxt": "active_em"}
+
+
+def _first_bounce(scene, mixed, spp=2, seed=3):
+    """(camera origins, the lanes of shade_cuda.LANE_IN) of the frame's
+    first bounce: every camera ray and its K1 closest hit; `mixed` draws
+    each lane's depth in 1..8, its throughput, previous pdf and delta
+    instead, so that roulette, the depth cut and the MIS branches show."""
+    from mitsuba3_experiments_tpu_torch.integrators import persistent
+    from mitsuba3_experiments_tpu_torch.intersect.bvh_torch import _query
+    from mitsuba3_experiments_tpu_torch.render import sensor as sensorlib
+
+    w, h = scene.camera.resolution
+    n = w * h * spp
+    dev = torch.device("cuda")
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    ray = sensorlib.sample_ray(scene.camera, persistent.ray_positions(scene.camera, seed, idx,
+                                                                      spp))
+    o, d = ray.o.contiguous(), ray.d.contiguous()
+    t, face, u, v = _query(scene, Ray.make(o, d), torch.ones(n, dtype=torch.bool, device=dev),
+                           False)
+    rng = np.random.default_rng(11)
+    if mixed:
+        as_t = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt, device=dev)  # noqa: E731
+        f = as_t(rng.uniform(0.0, 1.0, (n, 3)))
+        eta, prev_pdf = as_t(rng.uniform(0.7, 1.5, n)), as_t(rng.uniform(0.0, 2.0, n))
+        depth = as_t(rng.integers(1, 9, n), torch.int32)
+        prev_delta = as_t(rng.random(n) < 0.3, torch.bool)
+        prev_p = o + as_t(rng.normal(0.0, 0.5, (n, 3)))
+    else:
+        f = torch.ones((n, 3), device=dev)
+        eta, prev_pdf = torch.ones(n, device=dev), torch.ones(n, device=dev)
+        depth = torch.ones(n, dtype=torch.int32, device=dev)
+        prev_delta, prev_p = torch.ones(n, dtype=torch.bool, device=dev), o
+    L = torch.zeros((n, 3), device=dev)
+    return o, (d, t, face, u, v, L, f, eta, depth, prev_p, prev_pdf, prev_delta, idx)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_shade_kernel_matches_plain_on_the_standin(scene, mixed):
+    """K6 against the plain `_shade` on the same card tensors, on the lanes
+    where trace_rays reads each field: the discrete fields equal on every
+    lane, the floats within rtol 1e-4 / atol 1e-6 (a transcendental's last
+    place, carried through the GGX density) and bit for bit on at least
+    0.9 of the lanes (the share is printed)."""
+    from mitsuba3_experiments_tpu_torch.integrators import persistent, shade_cuda
+
+    o, lanes = _first_bounce(scene, mixed)
+    d, t, face, u, v, L, f, eta, depth, prev_p, prev_pdf, prev_delta, idx = lanes
+    every = torch.ones(d.shape[0], dtype=torch.bool, device="cuda")
+    launches = shade_cuda.launches
+    packed = shade_cuda.pack_scene(scene, 3, max_depth=8, rr_depth=4)
+    got = shade_cuda.shade(packed, *lanes)
+    ref = persistent._shade(scene, 3, every, o, *lanes, max_depth=8, rr_depth=4)
+    torch.cuda.synchronize()
+    assert shade_cuda.launches == launches + 1
+    shares = {}
+    for field, on in SHADE_READ_ON.items():
+        a, b = getattr(got, field), getattr(ref, field)
+        if on is not None:
+            a, b = a[getattr(ref, on)], b[getattr(ref, on)]
+        if b.dtype == torch.bool:
+            assert torch.equal(a, b), field
+            continue
+        same = a.view(torch.int32) == b.view(torch.int32)
+        same = same.all(1) if same.dim() > 1 else same
+        shares[field] = float(same.float().mean()) if same.numel() else 1.0
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6, msg=field)
+    print(f"[K6 {'mixed' if mixed else 'first bounce'}] {d.shape[0]} lanes, "
+          f"{int(ref.cont.sum())} cont, {int(ref.active_em.sum())} active_em; bit-equal shares "
+          + ", ".join(f"{k} {v:.6f}" for k, v in shares.items()))
+    assert min(shares.values()) >= 0.9, shares
+    assert int(ref.cont.sum()) > 0 and int(ref.active_em.sum()) > 0
+
+
+def test_render_and_record_with_k6_match_the_plain_path(scene, monkeypatch):
+    """render_persistent and record_full_pipelined shade each bounce with one
+    K6 launch and never the plain `_shade`; against the same calls with the
+    plain `_shade` forced, the records agree as F5/F6 read them (prim and
+    occl equal, u and v within 1e-6) on at least 0.999 of the rows and the
+    per-ray radiance within rtol 1e-4 / atol 1e-5 on at least 0.999 of the
+    rays (a direction's last place may move a hit)."""
+    from mitsuba3_experiments_tpu_torch.integrators import (
+        persistent, record_full_pipelined, render_persistent, shade_cuda)
+    from mitsuba3_experiments_tpu_torch.intersect import bvh_torch
+
+    w, h = scene.camera.resolution
+    n = w * h * 2
+    seen = {"bounces": 0, "plain": 0}
+    query, shade = bvh_torch._query, persistent._shade
+
+    def counted_query(scene, ray, active, any_hit):
+        seen["bounces"] += not any_hit
+        return query(scene, ray, active, any_hit)
+
+    def counted_shade(*a, **k):
+        seen["plain"] += 1
+        return shade(*a, **k)
+
+    def run():
+        img = render_persistent(scene, seed=3, spp=2, max_depth=8, rr_depth=4, rfilter="tent")
+        rec, film = record_full_pipelined(scene, 5, n, spp=2, max_depth=8, rr_depth=4,
+                                          return_film=True)
+        rayL = persistent.trace_rays(scene, 5, 0, n, n, spp=2, max_depth=8, rr_depth=4)
+        torch.cuda.synchronize()
+        return img, rec, film, rayL
+
+    with monkeypatch.context() as mp:
+        mp.setattr(persistent, "_query", counted_query)
+        mp.setattr(persistent, "_shade", counted_shade)
+        launches = shade_cuda.launches
+        k6 = run()
+        bounces = seen["bounces"]
+        assert seen["plain"] == 0 and bounces > 8
+        assert shade_cuda.launches - launches == bounces
+        mp.setattr(shade_cuda, "pack_scene", lambda *a, **k: None)   # the plain path forced
+        plain = run()
+        assert shade_cuda.launches - launches == bounces and seen["plain"] > 0
+    (img, rec, film, rayL), (img_p, rec_p, film_p, rayL_p) = k6, plain
+    rows = (rec.prim == rec_p.prim).all(1) & (rec.occl == rec_p.occl).all(1) & \
+        torch.isclose(rec.u, rec_p.u, rtol=0, atol=1e-6).all(1) & \
+        torch.isclose(rec.v, rec_p.v, rtol=0, atol=1e-6).all(1)
+    close = torch.isclose(rayL, rayL_p, rtol=1e-4, atol=1e-5).all(1)
+    same = all(torch.equal(getattr(rec, k), getattr(rec_p, k)) for k in ("prim", "u", "v", "occl"))
+    print(f"[K6 paths] record rows equal {float(rows.float().mean()):.6f} "
+          f"({int((~rows).sum())} of {rows.numel()} differ), rays within rtol 1e-4 "
+          f"{float(close.float().mean()):.6f}, record bit-equal {same}, rays bit-equal "
+          f"{torch.equal(rayL, rayL_p)}, image max abs diff {float((img - img_p).abs().max()):.3e}, film max abs diff "
+          f"{float((film - film_p).abs().max()):.3e}")
+    assert float(rows.float().mean()) >= 0.999 and float(close.float().mean()) >= 0.999
+    for a, b in ((img, img_p), (film, film_p)):
+        assert bool(torch.isfinite(a).all()) and float(a.mean()) > 0
+        assert abs(float(a.mean()) - float(b.mean())) <= 1e-3 * float(b.mean())

@@ -5,8 +5,9 @@ nothing.  Under `torch.profiler` the record, the render and the replay
 carry the `m3t.*` spans, nested as the wavefront runs them (`m3t.k1` in
 `m3t.bounce` in `m3t.record.batch`), one `m3t.bounce` a bounce and one
 `m3t.k1` a traversal, with `m3t.k1.rays` counting the rays the traversals
-received; and the image, the record
-and the gradients are bit-equal to an untraced run.  The test that every
+received and `m3t.shade.lanes` the lanes the bounces shaded (on the CPU
+by the plain `_shade`, so `m3t.shade.kernel_lanes` stays absent); and the
+image, the record and the gradients are bit-equal to an untraced run.  The test that every
 wait of the card's paths lies in an `m3t.wait` span is in
 test_torch_cuda.py (the CPU has no device to wait for).
 """
@@ -83,13 +84,14 @@ def _counted(fn, *args):
     """_traced(fn, *args) with _shade's calls, the wavefront's bounces (its
     calls from trace_rays), and the traversals and their rays counted
     apart."""
-    seen = {"shade": 0, "bounces": 0, "queries": 0, "rays": 0}
+    seen = {"shade": 0, "bounces": 0, "lanes": 0, "queries": 0, "rays": 0}
     shade, traverse = persistent._shade, bvh_torch.traverse
 
     def counted_shade(scene, seed, doneA, hit_o, *a, **k):
         seen["shade"] += 1
         if sys._getframe(1).f_code.co_name == "trace_rays":
             seen["bounces"] += 1
+            seen["lanes"] += doneA.shape[0]
         return shade(scene, seed, doneA, hit_o, *a, **k)
 
     def counted_traverse(unified, n_nodes, o, *a, **k):
@@ -140,13 +142,15 @@ def _check_record(spans, counts, seen):
         assert len(b) == 1 and any(b[0].inside(r) for r in by["m3t.record.batch"])
     assert counts["m3t.k1.rays"] == seen["rays"]
     assert seen["rays"] >= N_RAYS
+    assert counts["m3t.shade.lanes"] == seen["lanes"] >= N_RAYS
+    assert "m3t.shade.kernel_lanes" not in counts
 
 
 def test_render_spans_nest_and_count(runs):
     _, _, spans, counts, seen = runs["render"]
     assert {e.name for e in spans} == RECORD_SPANS | {"m3t.splat"}
     assert sum(e.name == "m3t.splat" for e in spans) == 1
-    assert set(counts) == {"m3t.k1.rays"}
+    assert set(counts) == {"m3t.k1.rays", "m3t.shade.lanes"}
     _check_record(spans, counts, seen)
 
 

@@ -1,10 +1,11 @@
 """The benchmark's readers of the port's spans and counters
-(benchmark/layer_metrics/_spans.py and the seven metrics built on it), on
+(benchmark/layer_metrics/_spans.py and the metrics built on it), on
 synthetic profiler events: the device-idle time by the innermost `m3t.*`
 span open at each gap's start, the `m3t.wait` count a traced step, and
 `k1_rays_per_launch` from the rays counter drained, and the launch
-counters read, once a traced step.  A trace or a
-program without the port's spans and counters leaves each reader empty."""
+counters read, once a traced step, and `shade_kernel_share` from the
+shading's lane counters.  A trace or a program without the port's spans and
+counters leaves each reader empty."""
 import sys
 import types
 from types import SimpleNamespace
@@ -131,3 +132,31 @@ def test_k1_rays_per_launch_is_empty_without_the_ports_counters(monkeypatch):
         rd = _reader("k1_rays_per_launch.fwd_bwd")
         rd.collect(ctx, {})
         assert rd.read(ctx) is None
+
+
+def test_shade_kernel_share_from_the_drained_counters(monkeypatch):
+    monkeypatch.setattr(prof_mod, "_profiling", lambda: True)
+    prof_mod.drain()
+    render, fwd_bwd = _reader("shade_kernel_share.render"), _reader("shade_kernel_share.fwd_bwd")
+    assert render.collect is fwd_bwd.collect is _reader("k1_rays_per_launch.render").collect
+    for kernel in (True, False):                         # the card's wavefront, the CPU's
+        ctx = _ctx(FB, None)
+        assert fwd_bwd.read(ctx) is None                 # nothing collected yet
+        for step, lanes in ((1, 2_000), (2, 500)):
+            ctx["loop"].steps_taken = step
+            prof_mod.count("m3t.shade.lanes", lanes)
+            if kernel:
+                prof_mod.count("m3t.shade.kernel_lanes", lanes)
+            fwd_bwd.collect(ctx, {})
+        assert fwd_bwd.read(ctx) == (100.0 if kernel else 0.0)
+        assert render.read(ctx) is None                  # another loop's metric
+    old = types.ModuleType("old_port.utils.profile")     # a program without the counters
+    monkeypatch.setitem(sys.modules, "old_port.utils.profile", old)
+    ctx = _ctx(R, None, pkg="old_port")
+    render.collect(ctx, {})
+    assert render.read(ctx) is None
+    ctx = _ctx(R, None)
+    prof_mod.count("m3t.k1.rays", 10)                    # the parent's counters alone
+    render.collect(ctx, {})
+    assert render.read(ctx) is None
+    assert prof_mod.drain() == {}

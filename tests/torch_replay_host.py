@@ -1,13 +1,15 @@
-"""K5's arithmetic on the CPU: csrc/replay_path.h built with g++ through
-csrc/replay_path_host.cpp, for the tests.
+"""K5's and K6's arithmetic on the CPU: csrc/replay_path.h and
+csrc/shade_lane.h built with g++ through csrc/replay_path_host.cpp and
+csrc/shade_lane_host.cpp, for the tests.
 
-The header holds the per-row forward and adjoint that the kernels run on
-the card; this library runs the same functions in a loop over the rows on
-the host, fed the same ReplayArgs structure (replay_cuda.pack_args) from CPU
-tensors.  It is built at first use into build/host/ at the repository root
-(the file name carries a hash of the sources and flags; a temporary name is
+The headers hold the per-row replay (forward and adjoint) and the per-lane
+shading that the kernels run on the card; these libraries run the same
+functions in a loop over the rows or lanes on the host, fed the same
+structures (replay_cuda.pack_args, shade_cuda.pack_scene) from CPU tensors.
+Each is built at first use into build/host/ at the repository root (the
+file name carries a hash of the sources and flags; a temporary name is
 renamed into place).  No float contraction (-ffp-contract=off), as nvcc's
---fmad=false.  The port's CPU path does not use it."""
+--fmad=false.  The port's CPU path does not use them."""
 from __future__ import annotations
 
 import ctypes
@@ -19,49 +21,75 @@ import threading
 
 import torch
 
-from mitsuba3_experiments_tpu_torch.integrators import replay_cuda
+from mitsuba3_experiments_tpu_torch.integrators import replay_cuda, shade_cuda
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(REPO, "mitsuba3_experiments_tpu_torch", "csrc")
-SOURCES = (os.path.join(CSRC, "replay_path_host.cpp"), os.path.join(CSRC, "replay_path.h"))
+HEADERS = (os.path.join(CSRC, "replay_path.h"), os.path.join(CSRC, "shade_lane.h"))
 FLAGS = ("-O2", "-std=c++17", "-ffp-contract=off", "-fPIC", "-shared")
 BUILD_DIR = os.path.join(REPO, "build", "host")
 
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
+
+
+def _build(stem: str) -> ctypes.CDLL:
+    """csrc/<stem>.cpp and the headers built with g++ and loaded."""
+    source = os.path.join(CSRC, f"{stem}.cpp")
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in (source, *HEADERS):
+        with open(src, "rb") as f:
+            h.update(f.read())
+    so = os.path.join(BUILD_DIR, f"{stem}_{h.hexdigest()[:16]}.so")
+    if not os.path.exists(so):
+        cxx = shutil.which("g++")
+        if cxx is None:
+            raise RuntimeError(f"g++ not found: it builds csrc/{stem}.cpp")
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        proc = subprocess.run([cxx, *FLAGS, "-o", tmp, source], capture_output=True,
+                              text=True, check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on {stem}.cpp:\n{proc.stderr}")
+        os.replace(tmp, so)
+    return ctypes.CDLL(so)
 
 
 def library() -> ctypes.CDLL:
-    global _lib
+    """K5's host build."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        h = hashlib.sha256(" ".join(FLAGS).encode())
-        for src in SOURCES:
-            with open(src, "rb") as f:
-                h.update(f.read())
-        so = os.path.join(BUILD_DIR, f"replay_path_host_{h.hexdigest()[:16]}.so")
-        if not os.path.exists(so):
-            cxx = shutil.which("g++")
-            if cxx is None:
-                raise RuntimeError("g++ not found: it builds csrc/replay_path_host.cpp")
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            proc = subprocess.run([cxx, *FLAGS, "-o", tmp, SOURCES[0]], capture_output=True,
-                                  text=True, check=False)
-            if proc.returncode != 0:
-                raise RuntimeError(f"g++ failed on replay_path_host.cpp:\n{proc.stderr}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        replay_cuda.check_args_size(lib)
-        args_p = ctypes.POINTER(replay_cuda.ReplayArgs)
-        dbl_p = ctypes.POINTER(ctypes.c_double)
-        lib.m3t_replay_forward_host.argtypes = [args_p]
-        lib.m3t_replay_forward_host.restype = ctypes.c_int
-        lib.m3t_replay_adjoint_host.argtypes = [args_p, dbl_p, dbl_p]
-        lib.m3t_replay_adjoint_host.restype = ctypes.c_int
-        _lib = lib
-        return lib
+        if "replay" not in _libs:
+            lib = _build("replay_path_host")
+            replay_cuda.check_args_size(lib)
+            args_p = ctypes.POINTER(replay_cuda.ReplayArgs)
+            dbl_p = ctypes.POINTER(ctypes.c_double)
+            lib.m3t_replay_forward_host.argtypes = [args_p]
+            lib.m3t_replay_forward_host.restype = ctypes.c_int
+            lib.m3t_replay_adjoint_host.argtypes = [args_p, dbl_p, dbl_p]
+            lib.m3t_replay_adjoint_host.restype = ctypes.c_int
+            _libs["replay"] = lib
+        return _libs["replay"]
+
+
+def shade_library() -> ctypes.CDLL:
+    """K6's host build."""
+    with _lock:
+        if "shade" not in _libs:
+            lib = _build("shade_lane_host")
+            shade_cuda.check_args_size(lib)
+            lib.m3t_shade_wavefront_host.argtypes = [ctypes.POINTER(shade_cuda.ShadeArgs)]
+            lib.m3t_shade_wavefront_host.restype = ctypes.c_int
+            _libs["shade"] = lib
+        return _libs["shade"]
+
+
+def shade(scene, seed, lanes, *, max_depth: int, rr_depth: int) -> dict:
+    """The header's `_shade` fields of one bounce (shade_cuda.LANE_OUT, by
+    name) on CPU tensors: `lanes` as shade_cuda.shade takes them."""
+    packed = shade_cuda.pack_scene(scene, seed, max_depth=max_depth, rr_depth=rr_depth)
+    out = shade_cuda.bind_lanes(packed, lanes)
+    assert shade_library().m3t_shade_wavefront_host(ctypes.byref(packed.args)) == 0
+    return out
 
 
 def forward(scene, rec, seed, idx0, **kw):
