@@ -6,10 +6,20 @@ per-layer metric sits in a file of its own that this module finds by the
 name `BENCHMARK.json` gives it:
 
   * a configuration: the file its `configs` entry names (`configs/<name>.json`);
-  * a traffic mix: `traffic/<traffic>.json`, parameters of one of the loops
-    in `loops.py` (its "loop" key names which);
+  * a traffic mix: `traffic/<traffic>.json`, parameters of the loop its
+    "loop" key names: an entry of `loops.LOOPS` or a loop file;
+  * a loop file: `loop_kinds/<loop>.py`, whose `LOOP` is a class with the
+    interface of `loops.Loop` (`metric`, `n_rays`, `step(i)`,
+    `check(ref_mod, ref, out, control=False)`, `release()`, optionally
+    `gather(out)`), built as `LOOP(port, scene, config, traffic, seed, spans,
+    ranks=...)`: `ranks` (`multicard.Ranks`) gives its rank, the rank count,
+    its device and the process group for its collectives (None on one
+    card).  `n_rays` is the whole frame's, over all ranks;
   * a per-layer metric: `layer_metrics/<name>.py`, with `read(ctx)` (and,
-    if it needs each traced step's outputs, `collect(ctx, out)`);
+    if it needs each traced step's outputs, `collect(ctx, out)`).  `ctx`
+    holds rank 0's spans, counters, trace and loop, and `ctx["by_rank"]`
+    each rank's `n_steps`, `peak_bytes`, `counters`, `spans` (host-clock
+    durations by name) and `busy_s` (traced runs; else None), in rank order;
   * a cell's limits on the numbers `correct` compares: `limits/<workload>.json`.
 """
 from __future__ import annotations
@@ -61,15 +71,44 @@ def load_cell(name: str, root: str = ROOT) -> dict:
     }
 
 
-def load_reader(bench_dir: str, name: str):
-    """The module of `layer_metrics/<name>.py` (loaded by path: metric names
-    hold dots)."""
-    path = os.path.join(bench_dir, "layer_metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location(f"_layer_metric_{name.replace('.', '_')}", path)
+def _load_path(path: str, module: str):
+    spec = importlib.util.spec_from_file_location(module, path)
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_reader(bench_dir: str, name: str):
+    """The module of `layer_metrics/<name>.py` (loaded by path: metric names
+    hold dots)."""
+    return _load_path(os.path.join(bench_dir, "layer_metrics", name + ".py"),
+                      f"_layer_metric_{name.replace('.', '_')}")
+
+
+def load_loop(bench_dir: str, name: str):
+    """make(port, scene, config, traffic, seed, spans, ranks=...) of the
+    loop a mix's "loop" names: an entry of `loops.LOOPS`, which runs on one
+    card and is built without `ranks`, or else `loop_kinds/<name>.py`'s
+    `LOOP` (loaded by path), built with it.  A name found in neither place
+    raises KeyError."""
+    from benchmark import loops
+
+    if name in loops.LOOPS:
+        cls = loops.LOOPS[name]
+
+        def make(*args, ranks):
+            if ranks.size > 1:
+                raise ValueError(f"loop {name!r} of loops.LOOPS runs on one card; a cell of "
+                                 f"{ranks.size} ranks needs a loop file under loop_kinds/")
+            return cls(*args)
+        return make
+    path = os.path.join(bench_dir, "loop_kinds", name + ".py")
+    if not os.path.isfile(path):
+        raise KeyError(f"no loop {name!r}: neither an entry of loops.LOOPS "
+                       f"({', '.join(loops.LOOPS)}) nor a file {path}")
+    cls = _load_path(path, f"_loop_kind_{name.replace('.', '_')}").LOOP
+    return lambda *args, ranks: cls(*args, ranks=ranks)
 
 
 def sub_seed(seed: int, tag: str) -> int:
@@ -218,13 +257,16 @@ class Trace:
 
 # ---------------------------------------------------------------------- output
 def result_line(correct: bool, attempted: int, failed: int, metrics: dict, device: dict,
-                checks: dict, breakdown=None) -> str:
-    """The last line of standard output; `checks` ({name: (value, limit)})
-    comes last."""
+                checks: dict, breakdown=None, ranks=None) -> str:
+    """The last line of standard output; `ranks` (a several-card run's
+    readings by rank) before `checks` ({name: (value, limit)}), which comes
+    last."""
     out = {"correct": bool(correct), "attempted": attempted, "failed": failed,
            "metrics": metrics, "device": device}
     if breakdown is not None:
         out["breakdown"] = breakdown
+    if ranks is not None:
+        out["ranks"] = ranks
     out["checks"] = {k: {"value": v, "limit": lim} for k, (v, lim) in checks.items()}
     return json.dumps(out)
 
