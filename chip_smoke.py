@@ -2320,8 +2320,8 @@ def small_sharded(mesh, dev):
         "persistent": render_persistent_sharded(scene, mesh, seed=3, spp=SMALL_SPP,
                                                 max_depth=SMALL_DEPTH, rr_depth=2),
     }
-    loss, g = sharded_replay_grad(scene, diff, target, 3, mesh, n_lanes=512, spp=SMALL_SPP,
-                                  max_depth=SMALL_DEPTH, rr_depth=2, ray_end=n, chunk=256)
+    loss, g, _ = sharded_replay_grad(scene, diff, target, 3, mesh, n_lanes=512, spp=SMALL_SPP,
+                                     max_depth=SMALL_DEPTH, rr_depth=2, ray_end=n, chunk=256)
     out["replay_loss"] = loss
     out.update({f"replay:{k}": v for k, v in g.items()})
     loss, g = sharded_grad_step(scene, diff, target, 3, mesh,
@@ -2382,7 +2382,7 @@ def phase_sharded(scene, integrator, card, dev, render_img, persistent_img, repl
                      img.cpu().numpy(), persistent_img)
         del img
         diff = {k: params.traverse(scene)[k] for k in DIFF_KEYS}
-        (loss, g), launches["sharded_replay_grad"], _ = sharded_stage(
+        (loss, g, _), launches["sharded_replay_grad"], _ = sharded_stage(
             f"19a sharded_replay_grad spp {SPP} depth {MAX_DEPTH}, chunks of {REPLAY_CHUNK}",
             lambda: sharded_replay_grad(scene, diff, target, 0, mesh, n_lanes=persistent.N_LANES,
                                         spp=SPP, max_depth=MAX_DEPTH, rr_depth=4, rfilter="box",

@@ -62,7 +62,7 @@ def run(device) -> dict:
     # production fwd+bwd: record each rank's slice, replay it in chunks
     n_rays = RES * RES
     per = -(-n_rays // world)
-    loss2, grads2 = sharded_replay_grad(
+    loss2, grads2, _ = sharded_replay_grad(
         scene, params, target, 0, mesh, idx0=0, n_lanes=max(per // 2, 8), spp=1, max_depth=3,
         rr_depth=2, ray_end=n_rays, chunk=per)
     check(bool(torch.isfinite(loss2)), "non-finite replay loss")

@@ -1,5 +1,6 @@
 """Ray-parallel rendering and gradients over a ``torch.distributed`` mesh."""
 from .mesh import (  # noqa: F401
+    RankRecord,
     make_mesh,
     render_persistent_sharded,
     render_sharded,

@@ -13,6 +13,20 @@ PyTorch is multi-controller, so here:
   * ``dist.all_reduce`` over the mesh's group takes the place of ``psum``,
     and every rank gets back the whole result.
 
+Spans and counters (``utils.profile``; on only while torch's profiler
+records, one call and one branch otherwise, and no sync):
+
+  * ``m3t.dp.record``: a rank's record of its slice (``trace_rays`` and
+    ``splat_deferred``) in ``sharded_replay_grad`` and
+    ``render_persistent_sharded``; counter ``m3t.dp.rays``, the camera rays
+    the rank traced there;
+  * ``m3t.dp.allreduce.film`` and ``m3t.dp.allreduce.grads``: the
+    all-reduces of the film and of the gradients;
+  * ``m3t.dp.replay``: ``sharded_replay_grad``'s loop over its replay
+    chunks;
+  * counters ``m3t.dp.allreduce_calls`` and ``m3t.dp.allreduce_bytes``: the
+    all-reduces of every entry point and the bytes each one carries.
+
 Lanes at or past the wavefront's end are gated (``render_pass``'s
 ``in_range``).  The JAX package points them at lane 0 instead, which splats
 lane 0's sample again into pixel (0, 0); the port does not copy that.
@@ -22,6 +36,8 @@ Not ported (TPU scheduling): the arguments ``steps``,
 ``render_persistent_sharded`` and ``sharded_replay_grad``.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -33,6 +49,7 @@ from ..integrators.common import render_pass, split_passes
 from ..integrators.replay import PathRecord, _grad, _splat, replay_radiance
 from ..render import film as filmlib
 from ..scene.params import update as scene_update
+from ..utils.profile import count, span
 
 
 def make_mesh(n_devices: int | None = None) -> DeviceMesh:
@@ -59,6 +76,8 @@ def _rank_size(mesh: DeviceMesh):
 
 
 def _all_reduce(t: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    count("m3t.dp.allreduce_calls")
+    count("m3t.dp.allreduce_bytes", t.numel() * t.element_size())
     dist.all_reduce(t, group=mesh.get_group("dp"))
     return t
 
@@ -113,11 +132,15 @@ def render_persistent_sharded(scene, mesh: DeviceMesh, seed: int = 0, spp: int =
     w, h = scene.camera.resolution
     rank, ndev = _rank_size(mesh)
     start, per, n_valid = _ray_slice(w * h * spp, rank, ndev)
-    rayL = pp.trace_rays(scene, seed, start, per, n_valid, spp=spp, max_depth=max_depth,
-                         rr_depth=rr_depth, n_lanes=n_lanes)
-    film = pp.splat_deferred(scene.camera, seed, rayL, start, n_valid, spp=spp, rfilter=rfilter,
-                             w=w, h=h)
-    return filmlib.develop(_all_reduce(film, mesh))
+    count("m3t.dp.rays", n_valid)
+    with span("m3t.dp.record"):
+        rayL = pp.trace_rays(scene, seed, start, per, n_valid, spp=spp, max_depth=max_depth,
+                             rr_depth=rr_depth, n_lanes=n_lanes)
+        film = pp.splat_deferred(scene.camera, seed, rayL, start, n_valid, spp=spp,
+                                 rfilter=rfilter, w=w, h=h)
+    with span("m3t.dp.allreduce.film"):
+        film = _all_reduce(film, mesh)
+    return filmlib.develop(film)
 
 
 def _sum_grads(grads: dict, mesh: DeviceMesh) -> dict:
@@ -162,12 +185,23 @@ def sharded_grad_step(scene, params: dict, target, seed, mesh: DeviceMesh, integ
     return loss.detach(), _sum_grads(grads, mesh)
 
 
+class RankRecord(NamedTuple):
+    """One rank's record of its slice: `rec` holds camera rays start ..
+    start + n_valid (row r = ray start + r; the rows past n_valid are
+    empty), and has the same number of rows on every rank."""
+
+    rec: PathRecord
+    start: int
+    n_valid: int
+
+
 def sharded_replay_grad(scene, params: dict, target, seed, mesh: DeviceMesh, *, idx0: int = 0,
                         n_lanes: int = 32768, spp: int, max_depth: int, rr_depth: int = 4,
                         rfilter: str = "box", ray_end=None, chunk: int | None = None):
-    """Multi-rank record + replay fwd+bwd: (loss, grads), the same on every
-    rank.  The camera rays idx0 .. ray_end (default idx0 + n_lanes * ranks)
-    are split into contiguous slices of ceil(n / ranks); each rank
+    """Multi-rank record + replay fwd+bwd: (loss, grads, this rank's
+    `RankRecord`); loss and grads are the same on every rank.  The camera
+    rays idx0 .. ray_end (default idx0 + n_lanes * ranks) are split into
+    contiguous slices of ceil(n / ranks); each rank
 
       1. records its slice (the wavefront in batches of at most `n_lanes`
          rays, K1 on the card) and splats the recorded radiance: its
@@ -178,7 +212,10 @@ def sharded_replay_grad(scene, params: dict, target, seed, mesh: DeviceMesh, *, 
       3. replays its slice in chunks of `chunk` rows (default: the whole
          slice), adding the gradient of <adjoint, the chunk's film>;
       4. sums the gradients over the ranks (they are linear in the splats,
-         so the sum is the whole-frame gradient)."""
+         so the sum is the whole-frame gradient, for any split of the rays
+         and wherever a sample lands).
+
+    `scene`'s tables are the values of `params` (the record traces them)."""
     w, h = scene.camera.resolution
     rank, ndev = _rank_size(mesh)
     if ray_end is None:
@@ -190,12 +227,15 @@ def sharded_replay_grad(scene, params: dict, target, seed, mesh: DeviceMesh, *, 
     end = start + n_valid
     kw = dict(spp=spp, max_depth=max_depth, rr_depth=rr_depth)
 
-    rec = PathRecord.empty(rows, max_depth, scene.device)
-    rayL = pp.trace_rays(scene, seed, start, rows, n_valid, n_lanes=min(n_lanes, per), rec=rec,
-                         **kw)
-    film = pp.splat_deferred(scene.camera, seed, rayL, start, n_valid, spp=spp, rfilter=rfilter,
-                             w=w, h=h)
-    film = _all_reduce(film, mesh)
+    count("m3t.dp.rays", n_valid)
+    with span("m3t.dp.record"):
+        rec = PathRecord.empty(rows, max_depth, scene.device)
+        rayL = pp.trace_rays(scene, seed, start, rows, n_valid, n_lanes=min(n_lanes, per),
+                             rec=rec, **kw)
+        film = pp.splat_deferred(scene.camera, seed, rayL, start, n_valid, spp=spp,
+                                 rfilter=rfilter, w=w, h=h)
+    with span("m3t.dp.allreduce.film"):
+        film = _all_reduce(film, mesh)
     img = filmlib.develop(film)
     wgt = film[..., 3:4]
     msk = wgt > 0.0
@@ -203,14 +243,18 @@ def sharded_replay_grad(scene, params: dict, target, seed, mesh: DeviceMesh, *, 
     adj = torch.where(msk, 2.0 * (img - target) / torch.where(msk, wgt, 1.0), 0.0)
 
     acc = {k: torch.zeros_like(v) for k, v in params.items()}
-    for j in range(0, n_valid, chunk):   # the chunks past n_valid hold no ray
-        sl = rec.rows(slice(j, j + chunk))
-        idx = torch.arange(start + j, start + j + chunk, dtype=torch.int64, device=scene.device)
+    with span("m3t.dp.replay"):
+        for j in range(0, n_valid, chunk):   # the chunks past n_valid hold no ray
+            sl = rec.rows(slice(j, j + chunk))
+            idx = torch.arange(start + j, start + j + chunk, dtype=torch.int64,
+                               device=scene.device)
 
-        def inner(s, sl=sl, idx=idx):
-            L, pos, act0 = replay_radiance(s, sl, seed, 0, ray_end=end, idx=idx, **kw)
-            return (adj * _splat(s, L, pos, act0, rfilter)[..., :3]).sum()
+            def inner(s, sl=sl, idx=idx):
+                L, pos, act0 = replay_radiance(s, sl, seed, 0, ray_end=end, idx=idx, **kw)
+                return (adj * _splat(s, L, pos, act0, rfilter)[..., :3]).sum()
 
-        for k, g in _grad(scene, params, scene_update, inner).items():
-            acc[k] += g
-    return loss, _sum_grads(acc, mesh)
+            for k, g in _grad(scene, params, scene_update, inner).items():
+                acc[k] += g
+    with span("m3t.dp.allreduce.grads"):
+        grads = _sum_grads(acc, mesh)
+    return loss, grads, RankRecord(rec, start, n_valid)

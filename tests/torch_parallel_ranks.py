@@ -15,7 +15,25 @@ Suites (the scenes and settings of tests/test_torch_parallel_*.py):
           seeded target: sharded_replay_grad with a lane per ray and with
           fewer lanes than rays and chunks, sharded_grad_step; then
           sharded_grad_step on cornell_box(res=TINY_RES), whose 4 lanes
-          leave the last rank of a world of 3 without a lane.
+          leave the last rank of a world of 3 without a lane;
+  dp_inverse         the benchmark's loop file `inverse_dp` (the inverse
+          step over the ranks through sharded_replay_grad) on
+          cornell_box(res=GRAD_RES), spp 2, depth 3, replay chunks of
+          DP_CHUNK rows (each rank's last chunk part empty): two steps,
+          each gathered to rank 0, which keeps the gathered record, a
+          one-process record of the same step, the gradients, the
+          reference's gradients of the gathered record (benchmark/
+          reference/) and the check's numbers; every rank keeps its
+          parameters after each step, and the port's `m3t.dp.*` counters
+          of the second step, taken under the profiler;
+  dp_inverse_faults  the same, then two steps with a fault planted, whose
+          check's numbers rank 0 keeps: rank 1 zeroes its own gradients
+          before their all-reduce; rank 2's rows left out of the gather;
+  strays  the Cornell box on a STRAY_W x 2 film (fov on its width, so the
+          strip sees the lit back wall), spp 2, depth 3: sharded_replay_grad
+          at STRAY_SEED, replay chunks of STRAY_CHUNK rows, against a seeded
+          target; every rank keeps its gradients and its record.  One
+          sample of that seed lands in the next pixel, in the next chunk.
 
 `start`, `collect` and `stop` run a world of these processes for a test.  Imports
 neither jax nor the JAX package.
@@ -30,7 +48,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 from mitsuba3_experiments_tpu_torch.integrators import PathIntegrator  # noqa: E402
 from mitsuba3_experiments_tpu_torch.parallel import (  # noqa: E402
@@ -84,8 +103,8 @@ def suite_grads(mesh, device) -> dict:
     out = {}
     for name, lanes, chunk in (("replay", per, None), ("replay_chunked", max(per // 2, 16),
                                                          max(per // 2, 16))):
-        loss, g = sharded_replay_grad(box, params, target, 4, mesh, n_lanes=lanes, chunk=chunk,
-                                      **kw)
+        loss, g, _ = sharded_replay_grad(box, params, target, 4, mesh, n_lanes=lanes,
+                                         chunk=chunk, **kw)
         out[f"{name}_loss"] = loss
         out.update({f"{name}:{k}": g[k] for k in DIFF_KEYS})
     loss, g = sharded_grad_step(box, params, target, 0, mesh,
@@ -106,7 +125,136 @@ def params_of(scene) -> dict:
             "emitters.radiance": scene.emitters.radiance}
 
 
-SUITES = {"render": suite_render, "grads": suite_grads}
+DP_CHUNK = 96      # 512 rays: a world of 3 splits them unevenly
+DP_SEED = 2**31 + 19
+
+
+def dp_config() -> dict:
+    """The four-card cell's configuration at the gradient suite's size."""
+    import json
+
+    with open(os.path.join(ROOT, "benchmark", "configs", "standin-d8-dp4.json")) as f:
+        c = json.load(f)
+    c.update(resolution=[GRAD_RES, GRAD_RES], spp=GRAD_SPP, max_depth=DEPTH, rr_depth=RR,
+             replay_chunk=DP_CHUNK)
+    return c
+
+
+def _zero_own_grads(real):
+    """sharded_replay_grad whose rank zeroes its own gradients before they
+    are all-reduced."""
+    from mitsuba3_experiments_tpu_torch.parallel import mesh as mesh_mod
+
+    def sharded_replay_grad(*a, **k):
+        sum_grads = mesh_mod._sum_grads
+        mesh_mod._sum_grads = lambda g, m: sum_grads({n: v.zero_() for n, v in g.items()}, m)
+        try:
+            return real(*a, **k)
+        finally:
+            mesh_mod._sum_grads = sum_grads
+    return sharded_replay_grad
+
+
+def _dp_suite(device, faults: bool) -> dict:
+    import json
+
+    from benchmark import harness, loops, multicard
+    from benchmark import reference as ref_mod
+    from mitsuba3_experiments_tpu_torch import parallel
+    from mitsuba3_experiments_tpu_torch.utils.profile import drain
+
+    bench = os.path.join(ROOT, "benchmark")
+    config = dp_config()
+    with open(os.path.join(bench, "traffic", "inverse-dp.json")) as f:
+        traffic = json.load(f)
+    port = loops.Port()
+    scene_dict = cornell_box(res=GRAD_RES, spp=GRAD_SPP)
+    scene = port.build.load_dict(scene_dict, device=device)[0]
+    me = multicard.Ranks(dist.get_rank(), dist.get_world_size(), device, dist.group.WORLD,
+                         dist.new_group(backend="gloo"))
+    loop = harness.load_loop(bench, traffic["loop"])(port, scene, config, traffic, DP_SEED,
+                                                     harness.Spans(False, lambda: None),
+                                                     ranks=me)
+    ref = ref_mod.RefScene.build(scene_dict, device) if me.lead else None
+    cfg = dict(spp=loop.spp, max_depth=loop.depth, rr_depth=loop.rr)
+    res = {}
+    for i in range(2):
+        if i == 1:    # the port's counters of one step, kept while the profiler records
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+                out = loop.step(i)
+            res.update({f"count:{k}": torch.tensor(v) for k, v in drain().items()
+                        if k.startswith("m3t.dp.")})
+        else:
+            out = loop.step(i)
+        res[f"params{i}"] = torch.cat([v.detach().reshape(-1) for v in loop.p.values()])
+        out = loop.gather(out)
+        if not me.lead:
+            continue
+        p = {"materials.base_color": out["params"]["materials.base_color"],
+             "emitters.radiance": torch.exp(out["params"][loops.LOG_RADIANCE])}
+        one = port.integrators.record_full_pipelined(port.params.update(scene, p), out["seed"],
+                                                     loop.n_rays, pad_to=loop.pad, **cfg)
+        g_ref = loops._by_log(ref_mod.replay_grads(ref, p, loop.target, out["seed"], out["rec"],
+                                                   loop.n_rays, chunk=loop.chunk, mode="full",
+                                                   **cfg), p["emitters.radiance"])
+        for f in ("prim", "u", "v", "occl"):
+            res[f"rec{i}:{f}"] = getattr(out["rec"], f)
+            res[f"one{i}:{f}"] = getattr(one, f)
+        for k in g_ref:
+            res[f"grads{i}:{k}"] = out["grads"][k]
+            res[f"ref{i}:{k}"] = g_ref[k]
+        for k, v in loop.check(ref_mod, ref, out).items():
+            res[f"check{i}:{k}"] = torch.tensor(v)
+    if faults:
+        real = parallel.sharded_replay_grad
+        if me.rank == 1:
+            parallel.sharded_replay_grad = _zero_own_grads(real)
+        out = loop.gather(loop.step(2))
+        parallel.sharded_replay_grad = real
+        got = {"zero_grads": out}
+        out = loop.step(3)
+        if me.rank == 2:
+            out["part"] = out["part"]._replace(n_valid=0)
+        got["drop_rows"] = loop.gather(out)
+        for name, out in got.items():
+            if me.lead:
+                for k, v in loop.check(ref_mod, ref, out).items():
+                    res[f"{name}:{k}"] = torch.tensor(v)
+    return res
+
+
+STRAY_W, STRAY_SPP, STRAY_CHUNK = 1024, 2, 64
+# ray 895's jitter rounds to 1.0 in float32: from pixel 447 (chunk 13) into pixel 448 (chunk 14)
+STRAY_SEED = 361
+
+
+def stray_dict() -> dict:
+    d = cornell_box(res=STRAY_W, spp=STRAY_SPP)
+    d["sensor"]["film"]["height"] = 2
+    d["sensor"]["fov_axis"] = "x"
+    return d
+
+
+def stray_target() -> np.ndarray:
+    return np.random.default_rng(1).uniform(0.0, 0.5, (2, STRAY_W, 3)).astype(np.float32)
+
+
+def suite_strays(mesh, device) -> dict:
+    box = load_dict(stray_dict(), device=device)[0]
+    n = STRAY_W * 2 * STRAY_SPP
+    loss, g, part = sharded_replay_grad(
+        box, params_of(box), torch.as_tensor(stray_target(), device=device), STRAY_SEED, mesh,
+        n_lanes=-(-n // mesh.size()), spp=STRAY_SPP, max_depth=DEPTH, rr_depth=RR, ray_end=n,
+        chunk=STRAY_CHUNK)
+    out = {f"grads:{k}": v for k, v in g.items()}
+    out.update({f"rec:{f}": getattr(part.rec, f) for f in ("prim", "u", "v", "occl")})
+    out["start"], out["n_valid"] = torch.tensor(part.start), torch.tensor(part.n_valid)
+    return out
+
+
+SUITES = {"render": suite_render, "grads": suite_grads, "strays": suite_strays,
+          "dp_inverse": lambda mesh, device: _dp_suite(device, False),
+          "dp_inverse_faults": lambda mesh, device: _dp_suite(device, True)}
 JOIN_S = 120   # a world's whole run; each collective also times out after 60 s
 
 
