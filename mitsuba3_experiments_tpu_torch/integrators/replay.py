@@ -19,6 +19,12 @@ radiance), so the traversal stays out of the autograd graph:
      torch autograd through the material and emitter table reads; the CPU
      runs it.  `jax.lax.stop_gradient` becomes `.detach()` at the same
      places (the RR probability and the throughput test, inside `_shade`).
+  3. GRADIENTS (`replay_grads`): on the card a step-level loop
+     (`_CardReplay`) with no autograd and no host wait inside it: K5's
+     scene packed once, each chunk's K5 forward, its film adjoint dL formed
+     explicitly (`render.film.gather_taps`), K5's adjoint adding into two
+     table gradients, then one backward pass through `update_fn` a call.
+     The CPU differentiates the plain replay chunk by chunk under autograd.
 
 The JAX package's `_prim_encode` / `_prim_decode` (a TPU flush-to-zero
 workaround) are not needed: the record keeps prim as int32.
@@ -36,9 +42,10 @@ from ..render import film as filmlib
 from ..render import sensor as sensorlib
 from ..scene.params import PARAM_KEYS
 from ..scene.types import Scene
-from ..utils.profile import span
+from ..utils.profile import count, span
 from . import persistent as pp
 from . import replay_cuda
+from .wavefront import _rand
 
 
 # replay_radiance_plain calls (a plain int, read by tests and the smoke test)
@@ -104,11 +111,19 @@ def _rows(scene: Scene, rec: PathRecord, seed, idx0, spp: int, ray_end, idx):
     a record's rows."""
     n = rec.prim.shape[0]
     dev = rec.prim.device
-    idx = torch.arange(n, dtype=torch.int64, device=dev) + int(idx0) if idx is None \
+    idx = torch.arange(int(idx0), int(idx0) + n, dtype=torch.int64, device=dev) if idx is None \
         else idx.to(torch.int64)
     act0 = torch.ones((n,), dtype=torch.bool, device=dev) if ray_end is None \
         else idx < int(ray_end)
-    return idx, pp.ray_positions(scene.camera, seed, idx, spp), act0
+    return idx, _positions(scene.camera, seed, idx, spp), act0
+
+
+def _positions(camera, seed, idx, spp: int):
+    """persistent.ray_positions of camera rays `idx`, bit for bit, with the
+    jitter's dimension a host int, so that its TEA key is two host ints
+    rather than ~300 device operations a call."""
+    px, py = pp.ray_pixel(camera, idx // spp)
+    return torch.stack([px, py], dim=-1) + _rand(seed, idx, 0, 2)
 
 
 def replay_radiance_plain(scene: Scene, rec: PathRecord, seed, idx0, *, spp: int,
@@ -176,8 +191,13 @@ def _on_card(device) -> bool:
     return device.type == "cuda"
 
 
-def _other_grad_keys(scene: Scene):
-    return [k for k in PARAM_KEYS if k not in K5_KEYS and PARAM_KEYS[k](scene).requires_grad]
+def _check_k5_keys(scene: Scene):
+    """Raises, naming them, if keys K5 does not differentiate require a
+    gradient."""
+    others = [k for k in PARAM_KEYS if k not in K5_KEYS and PARAM_KEYS[k](scene).requires_grad]
+    if others:
+        raise ValueError(f"K5 differentiates only {', '.join(K5_KEYS)}; the replay on the card "
+                         f"cannot differentiate {', '.join(others)}")
 
 
 class ReplayRadiance(torch.autograd.Function):
@@ -213,10 +233,7 @@ def replay_radiance(scene: Scene, rec: PathRecord, seed, idx0, *, spp: int, max_
               ray_end=ray_end, idx=idx, n_steps=n_steps)
     if not _on_card(rec.prim.device):
         return replay_radiance_plain(scene, rec, **kw)
-    others = _other_grad_keys(scene)
-    if others:
-        raise ValueError(f"K5 differentiates only {', '.join(K5_KEYS)}; the replay on the card "
-                         f"cannot differentiate {', '.join(others)}")
+    _check_k5_keys(scene)
     L = ReplayRadiance.apply(scene.materials.base_color, scene.emitters.radiance,
                              SimpleNamespace(scene=scene, rec=rec, kw=kw))
     _, pos, act0 = _rows(scene, rec, seed, idx0, spp, ray_end, idx)
@@ -266,22 +283,113 @@ def _check_chunks(rec, chunk):
     return rows
 
 
+def _film_adjoint(film, target):
+    """d/dS of the squared error of develop(film) against `target` over the
+    covered pixels, S the film's summed radiance: 2 (S/w - target) / w
+    where the filter weight w > 0 (w does not depend on the radiance;
+    S/w there is develop's quotient)."""
+    wgt = film[..., 3:4]
+    cov = wgt > 0.0
+    w = torch.where(cov, wgt, 1.0)
+    return torch.where(cov, 2.0 * (film[..., :3] / w - target) / w, 0.0)
+
+
+def _put(film, L, ok, taps):
+    """_splat of a chunk's L (`ok` its finite entries, `taps` its film
+    positions' filter taps) into `film`, in place."""
+    return filmlib.put_taps(film, taps, torch.where(ok, L, 0.0))
+
+
+def _splat_adjoint(adj, ok, taps):
+    """dL of <adj, _splat(L)[..., :3]>: the filter's transpose of `adj`, 0
+    where L is not finite (_splat passes no derivative there)."""
+    return torch.where(ok, filmlib.gather_taps(adj, taps), 0.0)
+
+
+class _CardReplay:
+    """replay_grads on the card as one step-level loop with no autograd and
+    no host wait inside it: `update_fn(scene, params)` evaluated once (the
+    tables, with `params` requiring grad), K5's scene packed once, and the
+    gradients of the two tables K5 differentiates accumulated over the
+    chunks by K5's adjoint; `grads` then takes one backward pass through
+    `update_fn`, which is linear in them, so one pass equals the sum of a
+    pass a chunk.  Each chunk: `forward` (K5's forward), the caller's dL,
+    `adjoint` (K5's adjoint)."""
+
+    def __init__(self, scene, params, update_fn, rec, seed, *, chunk: int, spp: int,
+                 max_depth: int, rr_depth: int, rfilter: str):
+        self.p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        self.tables = t = update_fn(scene, self.p)
+        _check_k5_keys(t)
+        dev = rec.prim.device
+        self.seed, self.spp, self.rfilter = seed, spp, rfilter
+        w, h = scene.camera.resolution
+        self.film_hw = (h, w)
+        self.packed = replay_cuda.pack_step(t, dev, seed, spp=spp, max_depth=max_depth,
+                                            rr_depth=rr_depth)
+        self.g = (torch.zeros(t.materials.base_color.shape, dtype=torch.float32, device=dev),
+                  torch.zeros(t.emitters.radiance.shape, dtype=torch.float32, device=dev))
+        self.scratch = torch.empty((rec.prim.shape[1], 6, chunk), dtype=torch.float32,
+                                   device=dev)
+
+    def forward(self, rec, idx0, ray_end, idx=None, n_steps=None):
+        """(L (N, 3), its finite entries, the filter taps of its film
+        positions) of a record chunk from one K5 forward launch; L as
+        replay_radiance gives it."""
+        replay_cuda.bind_rows(self.packed, rec, idx0, ray_end=ray_end, idx=idx, n_steps=n_steps)
+        L = replay_cuda.replay_forward(self.packed)
+        count("m3t.replay.step_rows", int(rec.prim.shape[0]))
+        _, pos, act0 = _rows(self.tables, rec, self.seed, idx0, self.spp, ray_end, idx)
+        return L, torch.isfinite(L), filmlib.taps(pos, act0, self.rfilter, *self.film_hw)
+
+    def adjoint(self, dL):
+        """K5's adjoint of the chunk `forward` last bound, added into the
+        tables' gradients."""
+        replay_cuda.replay_adjoint(self.packed, dL, out=self.g, scratch=self.scratch)
+
+    def grads(self):
+        """The gradients with respect to every tensor of `params`, as a dict
+        (zeros where a tensor is not reached), as `_grad` gives them."""
+        t = self.tables
+        outs = [(x, g) for x, g in zip((t.materials.base_color, t.emitters.radiance), self.g)
+                if x.requires_grad]
+        gs = (torch.autograd.grad([x for x, _ in outs], list(self.p.values()),
+                                  grad_outputs=[g for _, g in outs], allow_unused=True)
+              if outs else [None] * len(self.p))
+        return {k: torch.zeros_like(v) if g is None else g for (k, v), g in zip(self.p.items(), gs)}
+
+
 def replay_grads_full(scene: Scene, params: dict, update_fn, target, seed, rec: PathRecord,
                       n_rays: int, *, chunk: int, spp: int, max_depth: int, rr_depth: int,
                       rfilter: str = "box"):
     """Gradients over a whole-frame PathRecord (rows a multiple of
     `chunk`), summed over chunks of `chunk` rows, each with its own MSE
     (exact for the box filter: chunks of consecutive rays cover disjoint
-    pixels when chunk is a multiple of spp)."""
+    pixels when chunk is a multiple of spp).  On the card a chunk's dL is
+    the adjoint of its own film's MSE, put back through the filter."""
     rows = _check_chunks(rec, chunk)
-    acc = None
+    kw = dict(spp=spp, max_depth=max_depth, rr_depth=rr_depth)
+    if not _on_card(rec.prim.device):
+        acc = None
+        for off in range(0, rows, chunk):
+            with span("m3t.replay.chunk"):
+                g = _replay_grad_impl(scene, params, update_fn, rec.rows(slice(off, off + chunk)),
+                                      target, seed, off, min(off + chunk, n_rays),
+                                      rfilter=rfilter, **kw)
+                acc = _add(acc, g)
+        return acc
+    card = _CardReplay(scene, params, update_fn, rec, seed, chunk=chunk, rfilter=rfilter, **kw)
+    w, h = scene.camera.resolution
+    film = filmlib.new_film(w, h, device=rec.prim.device)
     for off in range(0, rows, chunk):
         with span("m3t.replay.chunk"):
-            g = _replay_grad_impl(scene, params, update_fn, rec.rows(slice(off, off + chunk)),
-                                  target, seed, off, min(off + chunk, n_rays), spp=spp,
-                                  max_depth=max_depth, rr_depth=rr_depth, rfilter=rfilter)
-            acc = _add(acc, g)
-    return acc
+            L, ok, taps = card.forward(rec.rows(slice(off, off + chunk)), off,
+                                       min(off + chunk, n_rays))
+            with span("m3t.replay.loss"):
+                dL = _splat_adjoint(_film_adjoint(_put(film.zero_(), L, ok, taps), target), ok,
+                                    taps)
+            card.adjoint(dL)
+    return card.grads()
 
 
 def path_lengths(rec: PathRecord):
@@ -326,10 +434,21 @@ def replay_grads_sorted(scene: Scene, params: dict, update_fn, target, seed, rec
         longest = lens[order[::chunk]].tolist()
     cls = [min(c for c in classes if c >= int(mx)) for mx in longest]
     kw = dict(spp=spp, max_depth=max_depth, rr_depth=rr_depth, ray_end=n_rays)
+    card = (_CardReplay(scene, params, update_fn, rec, seed, chunk=chunk, spp=spp,
+                        max_depth=max_depth, rr_depth=rr_depth, rfilter=rfilter)
+            if _on_card(rec.prim.device) else None)
 
     def chunk_rows(j):
         oj = order[j * chunk:(j + 1) * chunk]
         return rec.rows(oj), oj
+
+    def replayed(s, j):
+        """Chunk j replayed: on the card K5's forward as _CardReplay.forward
+        gives it, else replay_radiance's (L, pos, act0) on the scene `s`."""
+        sl, oj = chunk_rows(j)
+        if card is not None:
+            return card.forward(sl, 0, n_rays, idx=oj, n_steps=cls[j])
+        return replay_radiance(s, sl, seed, 0, idx=oj, n_steps=cls[j], **kw)
 
     if film is None:
         w, h = scene.camera.resolution
@@ -337,23 +456,26 @@ def replay_grads_sorted(scene: Scene, params: dict, update_fn, target, seed, rec
         with torch.no_grad():
             for j in range(n_chunks):
                 with span("m3t.replay.chunk"):
-                    sl, oj = chunk_rows(j)
-                    L, pos, act0 = replay_radiance(scene, sl, seed, 0, idx=oj, n_steps=cls[j],
-                                                   **kw)
-                    film = film + _splat(scene, L, pos, act0, rfilter)
+                    if card is not None:
+                        _put(film, *replayed(None, j))
+                    else:
+                        film = film + _splat(scene, *replayed(scene, j), rfilter)
     with span("m3t.replay.loss"):
-        img = filmlib.develop(film)
-        wgt = film[..., 3:4]
-        adj = torch.where(wgt > 0.0, 2.0 * (img - target) / torch.where(wgt > 0.0, wgt, 1.0),
-                          0.0).detach()
+        adj = _film_adjoint(film, target).detach()
 
+    if card is not None:
+        for j in range(n_chunks):
+            with span("m3t.replay.chunk"):
+                _, ok, taps = replayed(None, j)
+                with span("m3t.replay.loss"):
+                    dL = _splat_adjoint(adj, ok, taps)
+                card.adjoint(dL)
+        return card.grads()
     acc = None
     for j in range(n_chunks):
         with span("m3t.replay.chunk"):
-            sl, oj = chunk_rows(j)
-
-            def inner(s, sl=sl, oj=oj, steps=cls[j]):
-                L, pos, act0 = replay_radiance(s, sl, seed, 0, idx=oj, n_steps=steps, **kw)
+            def inner(s, j=j):
+                L, pos, act0 = replayed(s, j)
                 with span("m3t.replay.loss"):
                     return (adj * _splat(s, L, pos, act0, rfilter)[..., :3]).sum()
 

@@ -14,9 +14,13 @@ Python loop of eager operators:
 travel as one ``ReplayArgs`` structure (csrc/replay_path.h) of pointers,
 sizes and scalars; `pack_args` fills it from a scene and a record on any
 device, so the CPU tests can hand the same structure to the header's host
-build.  The kernels are built by cuda_build.CudaLibrary at their first CUDA
-call (never at import), with --fmad=false so that their float operations
-round as the plain torch version's.
+build.  The replay's step-level loop (`replay._CardReplay`) fills the
+scene's part once a call (`pack_step`) and points it at each chunk's rows
+(`bind_rows`); its adjoint launches add into the caller's two gradient
+buffers through one scratch (`replay_adjoint`'s `out` and `scratch`).
+The kernels are built by cuda_build.CudaLibrary at their first CUDA call
+(never at import), with --fmad=false so that their float operations round
+as the plain torch version's.
 
 What K5 reads and raises on: every BSDFKind (``scene/types.py``), area
 emitters, the constant environment and the textured environment map, the
@@ -34,7 +38,7 @@ from ..cuda_build import CudaLibrary, check_tensor, stream_of
 from ..render import fresnel as fr
 from ..render.emitter import _has_env_map
 from ..scene.types import BSDFKind
-from ..utils.profile import spanned
+from ..utils.profile import count, spanned
 
 # kernel launches made (plain ints, read by tests and the smoke test)
 forward_launches = 0
@@ -93,11 +97,12 @@ LIBRARY = CudaLibrary("replay_path", ("--fmad=false",), _bind)
 
 class Packed:
     """A filled ReplayArgs and the tensors its pointers point into (kept
-    alive with it)."""
+    alive with it): `keep` the scene's, `rows` the record chunk's."""
 
     def __init__(self, args: ReplayArgs, keep: list):
         self.args = args
         self.keep = keep
+        self.rows: list = []
         self.out = ()
 
 
@@ -114,25 +119,48 @@ def pack_args(scene, rec, seed, idx0, *, spp: int, max_depth: int, rr_depth: int
     (int64) when given; rows at or past `ray_end` are inactive; `n_steps`
     depth steps at most.  Every tensor must be on the record's device; a
     scene or layout K5 does not read raises."""
-    dev = rec.prim.device
-    n, D = rec.prim.shape
+    packed = _scene_args(scene, rec.prim.device, seed, spp=spp, max_depth=max_depth,
+                         rr_depth=rr_depth)
+    bind_rows(packed, rec, idx0, ray_end=ray_end, idx=idx, n_steps=n_steps)
+    return packed
+
+
+@spanned("m3t.k5.pack")
+def pack_step(scene, dev, seed, *, spp: int, max_depth: int, rr_depth: int) -> Packed:
+    """ReplayArgs of one replay call's scene on `dev`, without a record:
+    `bind_rows` points it at each chunk's rows in turn."""
+    return _scene_args(scene, dev, seed, spp=spp, max_depth=max_depth, rr_depth=rr_depth)
+
+
+def _scene_args(scene, dev, seed, *, spp: int, max_depth: int, rr_depth: int) -> Packed:
     keep: list = []
     a = ReplayArgs()
-    prim = rec.prim.contiguous()
-    a.prim = _ptr(keep, "prim", prim, torch.int32, (n, D), dev)
-    a.rec_u = _ptr(keep, "u", rec.u.contiguous(), torch.float32, (n, D), dev)
-    a.rec_v = _ptr(keep, "v", rec.v.contiguous(), torch.float32, (n, D), dev)
-    a.occl = _ptr(keep, "occl", rec.occl.contiguous(), torch.bool, (n, D), dev)
-    a.idx = None if idx is None else _ptr(keep, "idx", idx.to(torch.int64).contiguous(),
+    a.seed = int(seed) & 0xFFFFFFFF
+    a.spp, a.max_depth, a.rr_depth = int(spp), int(max_depth), int(rr_depth)
+    pack_scene(a, keep, scene, dev)
+    return Packed(a, keep)
+
+
+def bind_rows(packed: Packed, rec, idx0, *, ray_end=None, idx=None,
+              n_steps: int | None = None) -> None:
+    """Points `packed` at a record chunk (pack_args's arguments), in place
+    of the chunk it pointed at; the record's tensors must be on the scene's
+    device.  Reads no device value."""
+    a = packed.args
+    dev = packed.keep[0].device
+    n, D = rec.prim.shape
+    rows: list = []
+    a.prim = _ptr(rows, "prim", rec.prim.contiguous(), torch.int32, (n, D), dev)
+    a.rec_u = _ptr(rows, "u", rec.u.contiguous(), torch.float32, (n, D), dev)
+    a.rec_v = _ptr(rows, "v", rec.v.contiguous(), torch.float32, (n, D), dev)
+    a.occl = _ptr(rows, "occl", rec.occl.contiguous(), torch.bool, (n, D), dev)
+    a.idx = None if idx is None else _ptr(rows, "idx", idx.to(torch.int64).contiguous(),
                                           torch.int64, (n,), dev)
     a.n_rows, a.idx0 = n, int(idx0)
     a.ray_end = -1 if ray_end is None else int(ray_end)
     a.depth = D
     a.n_steps = D if n_steps is None else max(0, min(int(n_steps), D))
-    a.seed = int(seed) & 0xFFFFFFFF
-    a.spp, a.max_depth, a.rr_depth = int(spp), int(max_depth), int(rr_depth)
-    pack_scene(a, keep, scene, dev)
-    return Packed(a, keep)
+    packed.rows = rows
 
 
 def pack_scene(a: ReplayArgs, keep: list, scene, dev, extra_consts=()) -> None:
@@ -221,6 +249,7 @@ def replay_forward(packed: Packed):
         raise RuntimeError(f"K5 forward launch failed: CUDA error {rc}")
     if a.n_rows:
         forward_launches += 1
+    count("m3t.k5.rows", int(a.n_rows))
     return L
 
 
@@ -230,19 +259,29 @@ def shared_fits(n_mats: int, n_emitters: int) -> bool:
 
 
 @spanned("m3t.k5.adjoint")
-def replay_adjoint(packed: Packed, dL, shared: bool | None = None):
+def replay_adjoint(packed: Packed, dL, shared: bool | None = None, out=None, scratch=None):
     """Adjoint kernel launch: (d base_color (M, 3), d radiance (E, 3)) of
     sum(L * dL) over the packed chunk.  `shared` (default: whether the
-    tables fit in shared memory) picks the kernel's table accumulation."""
+    tables fit in shared memory) picks the kernel's table accumulation.
+    `out`, a pair of float32 buffers of those shapes, takes the gradients
+    added to what it holds (the kernel adds; new zeroed buffers without
+    it); `scratch`, (depth, 6, rows) float32, the kernel's per-vertex
+    scratch (a new one without it)."""
     global adjoint_launches
     dev = _check_cuda(packed)
     a = packed.args
     dL = dL.detach().to(torch.float32).contiguous()
     check_tensor("dL", dL, torch.float32, (a.n_rows, 3), dev)
     a.dL = dL.data_ptr()
-    d_bc = torch.zeros((a.n_mats, 3), dtype=torch.float32, device=dev)
-    d_rad = torch.zeros((a.n_emitters, 3), dtype=torch.float32, device=dev)
-    scratch = torch.empty((a.depth, 6, a.n_rows), dtype=torch.float32, device=dev)
+    if out is None:
+        out = (torch.zeros((a.n_mats, 3), dtype=torch.float32, device=dev),
+               torch.zeros((a.n_emitters, 3), dtype=torch.float32, device=dev))
+    d_bc, d_rad = out
+    check_tensor("d_base_color", d_bc, torch.float32, (a.n_mats, 3), dev)
+    check_tensor("d_radiance", d_rad, torch.float32, (a.n_emitters, 3), dev)
+    if scratch is None:
+        scratch = torch.empty((a.depth, 6, a.n_rows), dtype=torch.float32, device=dev)
+    check_tensor("scratch", scratch, torch.float32, (a.depth, 6, a.n_rows), dev)
     packed.out = (dL, d_bc, d_rad, scratch)   # this launch's own buffers
     a.d_base_color, a.d_radiance, a.scratch = d_bc.data_ptr(), d_rad.data_ptr(), \
         scratch.data_ptr()

@@ -790,8 +790,8 @@ def test_sharded_entry_points_in_a_one_rank_nccl_group(card, tmp_path):
         launches, calls = bvh_cuda.launches, bvh_torch.calls
         img = render_sharded(box, integ, mesh, spp=2, seed=7, chunk=700)
         pers = render_persistent_sharded(box, mesh, seed=3, spp=2, max_depth=3, rr_depth=2)
-        loss, g = sharded_replay_grad(box, diff, target, 4, mesh, n_lanes=512, spp=2,
-                                      max_depth=3, rr_depth=2, ray_end=n, chunk=256)
+        loss, g, _ = sharded_replay_grad(box, diff, target, 4, mesh, n_lanes=512, spp=2,
+                                         max_depth=3, rr_depth=2, ray_end=n, chunk=256)
         assert bvh_cuda.launches > launches and bvh_torch.calls == calls
     finally:
         dist.destroy_process_group()
@@ -894,10 +894,11 @@ def test_replay_adjoint_table_accumulation(scene, shared):
     assert replay_cuda.shared_fits(20, 2) and not replay_cuda.shared_fits(20_000, 0)
 
 
-@pytest.mark.parametrize("mode", ["full", "sorted", "trunc"])
-def test_replay_grads_on_card_run_k5(scene, mode):
+def _replay_step_case(scene):
+    """(target, record, film, n, padded rows, the two K5 keys' tensors) of
+    a depth-8 record of the stand-in, in chunks of 1024."""
     from mitsuba3_experiments_tpu_torch.integrators import (
-        PathIntegrator, record_full_pipelined, render, replay, replay_cuda, replay_grads)
+        PathIntegrator, record_full_pipelined, render)
     from mitsuba3_experiments_tpu_torch.scene import params
 
     w, h = scene.camera.resolution
@@ -908,17 +909,59 @@ def test_replay_grads_on_card_run_k5(scene, mode):
     rec, film = record_full_pipelined(scene, 3, n, spp=2, max_depth=8, rr_depth=4, pad_to=pad,
                                       return_film=True)
     diff = {k: params.traverse(scene)[k] for k in ("materials.base_color", "emitters.radiance")}
+    return target, rec, film, n, pad, diff
+
+
+@pytest.mark.parametrize("mode", ["full", "sorted", "trunc"])
+def test_replay_grads_on_card_run_k5(scene, mode):
+    """The step-level replay launches one K5 forward and one adjoint a
+    chunk, and its gradients equal the plain CPU replay of the same record
+    (copied to the CPU) within 1e-4 of the largest entry."""
+    from mitsuba3_experiments_tpu_torch.integrators import PathRecord, replay, replay_cuda, \
+        replay_grads
+    from mitsuba3_experiments_tpu_torch.scene import params, scene_from_numpy, scene_to_numpy
+
+    target, rec, film, n, pad, diff = _replay_step_case(scene)
+    kw = dict(chunk=1024, spp=2, max_depth=8, rr_depth=4, mode=mode)
     fwd, adj, plain = replay_cuda.forward_launches, replay_cuda.adjoint_launches, \
         replay.plain_calls
-    g = replay_grads(scene, diff, params.update, target, 3, rec, n, chunk=1024, spp=2,
-                     max_depth=8, rr_depth=4, mode=mode, film=film)
+    g = replay_grads(scene, diff, params.update, target, 3, rec, n, film=film, **kw)
     torch.cuda.synchronize()
     chunks = pad // 1024
     assert replay_cuda.forward_launches == fwd + chunks
     assert replay_cuda.adjoint_launches == adj + chunks
     assert replay.plain_calls == plain
+    host = scene_from_numpy(scene_to_numpy(scene), device="cpu")
+    rec_h = PathRecord(*(getattr(rec, f).cpu() for f in ("prim", "u", "v", "occl")))
+    ref = replay_grads(host, {k: v.cpu() for k, v in diff.items()}, params.update, target.cpu(),
+                       3, rec_h, n, film=film.cpu(), **kw)
     for k, v in g.items():
-        assert bool(torch.isfinite(v).all()) and float(v.abs().max()) > 0, k
+        r = ref[k]
+        assert bool(torch.isfinite(v).all()) and float(r.abs().max()) > 0, k
+        torch.testing.assert_close(v.cpu(), r, rtol=0, atol=1e-4 * float(r.abs().max()),
+                                   msg=lambda m, k=k: f"{mode} {k}: {m}")
+
+
+@pytest.mark.parametrize("mode", ["full", "sorted"])
+def test_replay_grads_on_card_wait_once_a_call(scene, mode):
+    """A full-mode replay_grads call waits for the device once (K5's scene
+    packing: the F_dr nodes), a sorted one twice (and its depth classes'
+    `.tolist()`), each inside an `m3t.wait` span; one `m3t.k5.pack` a call."""
+    from mitsuba3_experiments_tpu_torch.integrators import replay_grads
+    from mitsuba3_experiments_tpu_torch.scene import params
+
+    target, rec, film, n, pad, diff = _replay_step_case(scene)
+
+    def call():
+        return replay_grads(scene, diff, params.update, target, 3, rec, n, chunk=1024, spp=2,
+                            max_depth=8, rr_depth=4, mode=mode, film=film)
+
+    call()                                     # builds, first allocations
+    spans, syncs = _waits_and_syncs(call)
+    waits = 1 if mode == "full" else 2
+    assert spans["m3t.wait"] == len(syncs) == waits, (spans, syncs)
+    assert all("m3t.wait" in s[1] for s in syncs), syncs
+    assert spans["m3t.k5.pack"] == 1 and spans["m3t.replay.chunk"] == pad // 1024, spans
 
 
 def test_replay_on_card_raises_for_other_keys(scene):

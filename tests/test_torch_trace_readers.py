@@ -3,8 +3,9 @@
 synthetic profiler events: the device-idle time by the innermost `m3t.*`
 span open at each gap's start, the `m3t.wait` count a traced step, and
 `k1_rays_per_launch` from the rays counter drained, and the launch
-counters read, once a traced step, and `shade_kernel_share` from the
-shading's lane counters.  A trace or a program without the port's spans and
+counters read, once a traced step, `shade_kernel_share` from the
+shading's lane counters and `replay_step_share` from the replay's row
+counters.  A trace or a program without the port's spans and
 counters leaves each reader empty."""
 import sys
 import types
@@ -159,4 +160,33 @@ def test_shade_kernel_share_from_the_drained_counters(monkeypatch):
     prof_mod.count("m3t.k1.rays", 10)                    # the parent's counters alone
     render.collect(ctx, {})
     assert render.read(ctx) is None
+    assert prof_mod.drain() == {}
+
+
+def test_replay_step_share_from_the_drained_counters(monkeypatch):
+    monkeypatch.setattr(prof_mod, "_profiling", lambda: True)
+    prof_mod.drain()
+    share = _reader("replay_step_share.fwd_bwd")
+    assert share.collect is _reader("k1_rays_per_launch.fwd_bwd").collect
+    for step_rows in (True, False):                      # the step-level loop, the Function's
+        ctx = _ctx(FB, None)
+        assert share.read(ctx) is None                   # nothing collected yet
+        for step in (1, 2):
+            ctx["loop"].steps_taken = step
+            prof_mod.count("m3t.k5.rows", 3 * 131_072)
+            if step_rows:
+                prof_mod.count("m3t.replay.step_rows", 3 * 131_072)
+            share.collect(ctx, {})
+        assert share.read(ctx) == (100.0 if step_rows else None)
+        assert share.read(_ctx(R, None)) is None         # another loop's metric
+    ctx = _ctx(FB, None)
+    prof_mod.count("m3t.k5.rows", 200)                   # a chunk outside the step-level loop
+    prof_mod.count("m3t.replay.step_rows", 150)
+    share.collect(ctx, {})
+    assert share.read(ctx) == 75.0
+    old = types.ModuleType("old_port.utils.profile")     # a program without the counters
+    monkeypatch.setitem(sys.modules, "old_port.utils.profile", old)
+    ctx = _ctx(FB, None, pkg="old_port")
+    share.collect(ctx, {})
+    assert share.read(ctx) is None
     assert prof_mod.drain() == {}

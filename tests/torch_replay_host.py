@@ -95,7 +95,12 @@ def shade(scene, seed, lanes, *, max_depth: int, rr_depth: int) -> dict:
 def forward(scene, rec, seed, idx0, **kw):
     """The header's per-row L (N, 3) float32 on CPU tensors (pack_args's
     arguments)."""
-    packed = replay_cuda.pack_args(scene, rec, seed, idx0, **kw)
+    return forward_packed(replay_cuda.pack_args(scene, rec, seed, idx0, **kw))
+
+
+def forward_packed(packed):
+    """replay_cuda.replay_forward on the host: L (N, 3) float32 of a packed
+    chunk on CPU tensors."""
     a = packed.args
     L = torch.empty((a.n_rows, 3), dtype=torch.float32)
     a.L = L.data_ptr()
@@ -103,12 +108,9 @@ def forward(scene, rec, seed, idx0, **kw):
     return L
 
 
-def adjoint(scene, rec, seed, idx0, dL, **kw):
-    """The header's gradients of sum(L * dL) with respect to base_color
-    (M, 3) and radiance (E, 3), every row's terms summed in float64."""
-    packed = replay_cuda.pack_args(scene, rec, seed, idx0, **kw)
+def _adjoint64(packed, dL):
     a = packed.args
-    dL = dL.to(torch.float32).contiguous()
+    dL = dL.detach().to(torch.float32).contiguous()
     scratch = torch.empty((a.depth, 6, a.n_rows), dtype=torch.float32)
     d_bc = torch.zeros((a.n_mats, 3), dtype=torch.float64)
     d_rad = torch.zeros((a.n_emitters, 3), dtype=torch.float64)
@@ -119,3 +121,21 @@ def adjoint(scene, rec, seed, idx0, dL, **kw):
                                            ctypes.cast(d_rad.data_ptr(), dbl_p))
     assert rc == 0
     return d_bc, d_rad
+
+
+def adjoint(scene, rec, seed, idx0, dL, **kw):
+    """The header's gradients of sum(L * dL) with respect to base_color
+    (M, 3) and radiance (E, 3), every row's terms summed in float64."""
+    return _adjoint64(replay_cuda.pack_args(scene, rec, seed, idx0, **kw), dL)
+
+
+def adjoint_packed(packed, dL, shared=None, out=None, scratch=None):
+    """replay_cuda.replay_adjoint on the host: the float64 sums rounded to
+    float32 and added into `out` as the kernel adds (new zeroed buffers
+    without it); `shared` and `scratch` are the kernel's and go unused."""
+    d_bc, d_rad = _adjoint64(packed, dL)
+    if out is None:
+        out = (torch.zeros(d_bc.shape), torch.zeros(d_rad.shape))
+    out[0].add_(d_bc.float())
+    out[1].add_(d_rad.float())
+    return out
